@@ -1,0 +1,495 @@
+"""Smoke run of the PyTorch port (floria_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+It imports the standard library, numpy, torch, the port and bench.py's
+`make_workload` (bench.py's module level imports only numpy); nothing of
+jax or of the JAX package `floria_tpu` directly. Phases, one JSON line
+each; any failure raises (exit code != 0):
+  1. device   - the card's name and power limit (nvidia-smi), torch/CUDA;
+  2. build    - nvcc builds the kernels from floria_tpu_torch/csrc/;
+  3. kernels  - K1 (beam scan) and K4 (UPEM move walk) against their plain
+                PyTorch versions, bitwise, at G=8 R=320 S=2048 (mixed
+                ploidies 2..5; K1 also against the plain scan on the
+                CPU), plus a windowed and a dedup case;
+  4. e2e      - the port's CLI on bench.py's `ecoli2` community (1 Mbp,
+                2 strains, 50k SNPs, 50x per strain): a first run (its
+                kernel launch counts), a second run (its K1 dispatches
+                recorded), a third run under torch.profiler
+                (the card's busy share) and a `--device cpu` run; all four
+                must write the same bytes;
+  5. dispatch - K1 and K4 against their plain versions on the card at the
+                main path's own largest beam dispatch, recorded in phase
+                4, and on its blocks at the next ploidy, timed;
+  6. parity   - the port's CLI on the `long3` community must write the
+                oracle pipeline's bytes (tests/data/long3_oracle.json).
+Times are medians of 3 after one warm run, CUDA-synchronized. The last
+lines are the kernel table, the nvidia-smi line and
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import filecmp
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_LONG3 = os.path.join(REPO, "tests", "data", "long3_oracle.json")
+# bench.py's `ecoli2` e2e community (bench.py:134).
+ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
+              coverage_per_strain=50.0, read_length=9_000,
+              read_length_sd=1_500.0, error_rate=0.02, seed=11)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn, reps=3):
+    """Median seconds of `reps` runs after one warm run (synchronized)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"shape/dtype mismatch {a.shape} {a.dtype} "
+                             f"vs {b.shape} {b.dtype}")
+    if torch.equal(a, b):
+        return 0.0
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
+
+
+def dedup_case():
+    """One early short read, then reads far downstream: chains that
+    differ only in the early read's part become identical truncated
+    blocks, which dedup must merge."""
+    from floria_tpu_torch import state
+
+    rng = np.random.default_rng(0)
+    P, S, R = 3, 64, 40
+    alleles = np.full((1, R, S), -1, np.int8)
+    quals = np.zeros((1, R, S), np.uint8)
+    alleles[0, 0, 0:3] = [0, 1, 0]
+    quals[0, 0, 0:3] = 30
+    strains = rng.integers(0, 2, (P, S))
+    starts = np.sort(rng.integers(29, 44, R - 1))
+    for i, s0 in enumerate(starts, start=1):
+        k = rng.integers(0, P)
+        hap = strains[k, s0:s0 + 12].copy()
+        err = rng.random(12) < 0.03
+        hap[err] = 1 - hap[err]
+        alleles[0, i, s0:s0 + 12] = hap
+        quals[0, i, s0:s0 + 12] = rng.integers(10, 40, 12)
+    weights = state.phred_table()[quals]
+    return (alleles, weights, np.array([R], np.int32),
+            np.array([0.03], np.float32), np.array([P], np.int32), P)
+
+
+def windowed_case(G=4, R=320, S=2048, span=200, seed=3):
+    rng = np.random.default_rng(seed)
+    strains = rng.integers(0, 2, (G, 3, S))
+    alleles = np.full((G, R, S), -1, np.int8)
+    weights = np.zeros((G, R, S), np.float32)
+    starts = np.sort(rng.integers(0, S - span, (G, R)), axis=1)
+    for g in range(G):
+        for r in range(R):
+            s0 = starts[g, r]
+            hap = strains[g, rng.integers(0, 3), s0:s0 + span].copy()
+            err = rng.random(span) < 0.02
+            hap[err] = 1 - hap[err]
+            alleles[g, r, s0:s0 + span] = hap
+            weights[g, r, s0:s0 + span] = 1.0 - 10.0 ** (
+                rng.integers(10, 40, span) / -10.0)
+    nreads = np.full(G, R, np.int32)
+    nreads[-1] = R - 17
+    return (alleles, weights, nreads, np.full(G, 0.02, np.float32),
+            np.full(G, 3, np.int32), 3)
+
+
+def _assert_beam_equal(label, ref, ref_asg, got, asg) -> float:
+    """Max abs difference over records, scores, live and assignments;
+    raises unless all are bitwise equal."""
+    err = 0.0
+    for name, a, b in zip(ref._fields + ("assign",), tuple(ref) +
+                          (ref_asg,), tuple(got) + (asg,)):
+        e = max_abs_diff(a, b)
+        if e != 0.0 or not torch.equal(a, b):
+            raise AssertionError(f"K1 {label}: {name} differs from the "
+                                 f"plain scan (max abs {e})")
+        err = max(err, e)
+    return err
+
+
+def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
+               window=0, label="", timing=False, cpu_ref=False):
+    """K1 against the plain scan on the same card (and, with cpu_ref, on
+    the CPU); inputs are numpy arrays or tensors. Returns (max_abs_err,
+    kernel_s, plain_s, (alleles, weights, num_reads, eps, assign))."""
+    from floria_tpu_torch.kernels import beam as tb
+
+    al, wt, nr, ep, npt = tb._inputs(alleles, weights, nreads, eps,
+                                     nparts, dev)
+    S = al.shape[-1]
+    window = S if window <= 0 or window >= S else window
+    prep = tb._prepare(al, wt, ep, A, P, window, True)
+    args = (al, wt, nr, *prep[:2], npt, *prep[2:])
+    kw = dict(P=P, W=W, A=A, window=window, dedup=True)
+    got, asg = tb.beam_scan_cuda(*args, **kw)
+    ref = tb.beam_scan_plain(*args, **kw)
+    err = _assert_beam_equal(label, ref, tb.traceback_batch(ref), got,
+                             asg)
+    cpu_s = None
+    if cpu_ref:
+        t0 = time.perf_counter()
+        ref = tb.beam_scan_plain(*(x.cpu() for x in args), **kw)
+        cpu_s = time.perf_counter() - t0
+        err = max(err, _assert_beam_equal(
+            label + " (plain on the CPU)", ref, tb.traceback_batch(ref),
+            type(got)(*(x.cpu() for x in got)), asg.cpu()))
+    k_s = p_s = None
+    if timing:
+        k_s = timed(lambda: tb.beam_scan_cuda(*args, **kw))
+        p_s = timed(lambda: tb.traceback_batch(
+            tb.beam_scan_plain(*args, **kw)))
+    emit({"phase": "kernels", "kernel": "beam_scan", "case": label,
+          "G": int(al.shape[0]), "R": int(al.shape[1]), "S": int(S),
+          "P": P, "num_parts": sorted(set(npt.tolist())),
+          "window": int(window), "bitwise_equal": True,
+          "cpu_plain_bitwise_equal": cpu_ref or None,
+          "cpu_plain_s": cpu_s,
+          "kernel_ms": None if k_s is None else k_s * 1e3,
+          "plain_ms": None if p_s is None else p_s * 1e3})
+    return err, k_s, p_s, (al, wt, nr, ep, asg)
+
+
+def check_moves(al, wt, nr, ep, asg, P, A=2, label=""):
+    """K4 against the host walk on the first UPEM iteration's inputs
+    (the beam's assignments); timed."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    assign = asg.to(torch.int32).contiguous()
+    diff, _score = tu._eval_diff_score(al, wt, assign, ep, P, A)
+    sizes0, order, n_valid = tu._move_candidates(assign, diff, nr)
+    got = tu.apply_moves_cuda(assign, order, n_valid, sizes0)
+    ref = tu.apply_moves_plain(assign, order, n_valid, sizes0)
+    err = max_abs_diff(ref, got)
+    if err != 0.0 or not torch.equal(got, ref):
+        raise AssertionError(f"K4 {label} differs from the plain move "
+                             f"walk (max abs {err})")
+    k_s = timed(lambda: tu.apply_moves_cuda(assign, order, n_valid,
+                                            sizes0))
+    p_s = timed(lambda: tu.apply_moves_plain(assign, order, n_valid,
+                                             sizes0))
+    emit({"phase": "kernels", "kernel": "upem_moves", "case": label,
+          "G": int(assign.shape[0]), "R": int(assign.shape[1]), "P": P,
+          "moves_applied": int((got != assign).sum()),
+          "bitwise_equal": True, "kernel_ms": k_s * 1e3,
+          "plain_ms": p_s * 1e3})
+    return err, k_s, p_s
+
+
+def run_cli(sim_dir, out_dir, device="cuda", extra=()):
+    from floria_tpu_torch import cli
+
+    cli.main(["-b", os.path.join(sim_dir, "sim.bam"),
+              "-v", os.path.join(sim_dir, "sim.vcf"),
+              "-r", os.path.join(sim_dir, "sim.fa"),
+              "-o", out_dir, "--overwrite", "--device", device, *extra])
+
+
+def _tree(root):
+    out = []
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            if f != "cmd.log":
+                out.append(os.path.relpath(os.path.join(d, f), root))
+    return sorted(out)
+
+
+def assert_same_tree(a, b, what):
+    files = _tree(a)
+    if files != _tree(b):
+        raise AssertionError(f"{what}: output files differ: {files} vs "
+                             f"{_tree(b)}")
+    for f in files:
+        if not filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
+                           shallow=False):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+class DispatchRecorder:
+    """Keeps the inputs and outputs of the sweep's beam calls (K1) while
+    active, so the kernels can be checked and timed at the main path's
+    own dispatches."""
+
+    def __init__(self):
+        from floria_tpu_torch.kernels import beam
+
+        self.module = beam
+        self.beam = []
+
+    def __enter__(self):
+        self._beam = self.module.beam_search_traceback
+
+        def beam(alleles, weights, nr, ep, nparts, P, W, **kw):
+            out = self._beam(alleles, weights, nr, ep, nparts, P, W, **kw)
+            self.beam.append(((alleles, weights, nr, ep, nparts), P, W,
+                              kw, out))
+            return out
+
+        self.module.beam_search_traceback = beam
+        return self
+
+    def __exit__(self, *exc):
+        self.module.beam_search_traceback = self._beam
+
+
+def device_busy_s(prof) -> float:
+    """Union of the traced device intervals (kernels, copies, sets)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e <= end:
+            continue
+        busy += e - max(s, end)
+        end = e
+    return busy * 1e-6
+
+
+def e2e_ecoli2(tmp):
+    """The port's CLI on bench.py's ecoli2 community: first, second,
+    traced and CPU runs, byte-equal. Returns (launches of the first run,
+    the second run's recorded dispatches)."""
+    from floria_tpu_torch import timing
+    from floria_tpu_torch.kernels import _build
+    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+
+    cfg = SimConfig(**ECOLI2)
+    sim_dir = os.path.join(tmp, "ecoli2")
+    t0 = time.time()
+    simulate(cfg, sim_dir)
+    emit({"phase": "e2e", "config": "ecoli2", "simulate_s":
+          time.time() - t0})
+    out_dir = os.path.join(tmp, "ecoli2_out")
+    contig_dir = os.path.join(out_dir, cfg.contig_name)
+
+    def one_run(label, device="cuda"):
+        t0 = time.perf_counter()
+        run_cli(sim_dir, out_dir, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        for name in (f"{cfg.contig_name}.haplosets",
+                     f"{cfg.contig_name}.vartigs", "vartig_info.txt"):
+            p = os.path.join(contig_dir, name)
+            if not os.path.exists(p) or os.path.getsize(p) == 0:
+                raise AssertionError(f"ecoli2 {label}: output {name} "
+                                     "missing or empty")
+        with open(os.path.join(contig_dir,
+                               f"{cfg.contig_name}.haplosets")) as fh:
+            n_reads = sum(1 for line in fh if not line.startswith(">"))
+        kept = out_dir + "_" + label
+        shutil.move(out_dir, kept)
+        rec = {"phase": "e2e", "config": "ecoli2", "run": label,
+               "device": device, "e2e_s": e2e_s,
+               "haploset_reads": n_reads, "reads_per_s": n_reads / e2e_s,
+               "stages_s": dict(timing.STAGE_TIMES)}
+        return rec, kept
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    rec, first = one_run("first")
+    launches = dict(_build.LAUNCHES)
+    rec["launches"] = launches
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    emit(rec)
+    for k in ("beam_scan", "upem_moves"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 f"ecoli2 run: {launches}")
+
+    with DispatchRecorder() as recorder:
+        rec, second = one_run("second")
+    emit(rec)
+    assert_same_tree(first, second, "ecoli2 second run")
+    if len(recorder.beam) != launches["beam_scan"]:
+        raise AssertionError(f"{len(recorder.beam)} beam dispatches in "
+                             f"the second run, {launches} in the first")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec, traced = one_run("traced")
+    busy = device_busy_s(prof)
+    if busy <= 0.0:
+        raise AssertionError("the traced ecoli2 run shows no device time")
+    rec["device_busy_s"] = busy
+    rec["device_idle_share"] = 1.0 - busy / rec["e2e_s"]
+    emit(rec)
+    assert_same_tree(first, traced, "ecoli2 traced run")
+
+    rec, cpu = one_run("cpu", device="cpu")
+    emit(rec)
+    assert_same_tree(first, cpu, "ecoli2 card run against the CPU run")
+    emit({"phase": "e2e", "config": "ecoli2", "byte_equal":
+          ["second", "traced", "cpu"], "files": len(_tree(first))})
+    return launches, recorder
+
+
+def check_dispatches(dev, recorder):
+    """K1 and K4 against their plain versions at the main path's largest
+    recorded beam dispatch: as dispatched, and on the same blocks at the
+    next ploidy (the dispatch a further sweep level gives them). K4 runs
+    on the first UPEM iteration's input, the beam's assignments. Returns
+    [(k1_err, k1_s, k1_plain_s, k4_err, k4_s, k4_plain_s)], the
+    dispatch as made first."""
+    (al, wt, nr, ep, npt), P0, W, kw, (_res, asg) = max(
+        recorder.beam, key=lambda b: b[0][0].shape[0])
+    out = []
+    for P in (P0, P0 + 1):
+        label = f"ecoli2 dispatch P={P}"
+        if P != P0:
+            label += " (same blocks)"
+            npt = torch.full_like(npt, P)
+        k1_err, k_s, p_s, ups = check_beam(
+            dev, al, wt, nr, ep, npt, P, W=W, A=kw["max_alleles"],
+            window=kw["window"], label=label, timing=True)
+        if P == P0 and not torch.equal(asg, ups[4]):
+            raise AssertionError(f"{label}: K1 differs from its own "
+                                 "main-path result")
+        k4 = check_moves(*ups, P, A=kw["max_alleles"], label=label)
+        out.append((k1_err, k_s, p_s, *k4))
+    return out
+
+
+def parity_long3(tmp):
+    """The port's CLI on long3 against the oracle pipeline's bytes
+    (tests/data/long3_oracle.json, written and checked against
+    tests/oracle_pipeline.py by tests/test_torch_pipeline.py)."""
+    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+
+    with open(GOLDEN_LONG3) as fh:
+        golden = json.load(fh)
+    sim_dir = os.path.join(tmp, "long3")
+    simulate(SimConfig(**golden["sim_config"]), sim_dir)
+    for name, want in golden["inputs_sha256"].items():
+        with open(os.path.join(sim_dir, name), "rb") as fh:
+            if hashlib.sha256(fh.read()).hexdigest() != want:
+                raise AssertionError(f"simulated long3 {name} differs "
+                                     "from the golden record's input")
+    out_dir = os.path.join(tmp, "long3_out")
+    run_cli(sim_dir, out_dir, extra=golden["cli_args"])
+    contig = golden["sim_config"]["contig_name"]
+    cdir = os.path.join(out_dir, contig)
+    names = {"vartigs": f"{contig}.vartigs",
+             "haplosets": f"{contig}.haplosets", "info": "vartig_info.txt"}
+    for key, name in names.items():
+        with open(os.path.join(cdir, name)) as fh:
+            if fh.read().replace(cdir, "<cdir>") != golden["outputs"][key]:
+                raise AssertionError(f"long3 {name} differs from the "
+                                     "oracle")
+    with open(os.path.join(out_dir, "contig_ploidy_info.tsv")) as fh:
+        if fh.read().splitlines()[-1] + "\n" != golden["outputs"]["ploidy"]:
+            raise AssertionError("long3 ploidy row differs from the oracle")
+    emit({"phase": "parity", "config": "long3",
+          "byte_equal": sorted(golden["outputs"])})
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    sys.path.insert(0, REPO)
+    import bench
+    from floria_tpu_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device_name": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count()})
+
+    t0 = time.time()
+    _build.build(force=True)
+    _build.get_lib()
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.time() - t0,
+          "ptxas": ptxas})
+
+    dev = torch.device("cuda")
+    alleles, weights, nreads, eps = bench.make_workload(8, 320, 2048)
+    nparts = np.array([2, 3, 4, 5, 2, 3, 4, 5], np.int32)
+    k1_err, _k_s, _p_s, ups = check_beam(
+        dev, alleles, weights, nreads, eps, nparts, 5, label="sweep",
+        timing=True, cpu_ref=True)
+    for label, case in (("windowed", windowed_case()),
+                        ("dedup", dedup_case())):
+        *inp, P = case
+        k1_err = max(k1_err, check_beam(
+            dev, *inp, P, window=384 if label == "windowed" else 0,
+            label=label)[0])
+    k4_err = check_moves(*ups, 5, label="sweep")[0]
+    del ups
+
+    with tempfile.TemporaryDirectory(prefix="floria_smoke_") as tmp:
+        launches, recorder = e2e_ecoli2(tmp)
+        per_dispatch = check_dispatches(dev, recorder)
+        del recorder
+        parity_long3(tmp)
+
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    for e1, _k1, _p1, e4, _k4, _p4 in per_dispatch:
+        k1_err, k4_err = max(k1_err, e1), max(k4_err, e4)
+    _e1, k1_s, k1_plain_s, _e4, k4_s, k4_plain_s = per_dispatch[0]
+    emit({"kernels": [
+        {"name": "beam_scan", "route": "cuda",
+         "source": "floria_tpu_torch/csrc/beam_scan.cu",
+         "replaces": "floria_tpu/kernels/beam_pallas.py:427",
+         "launches": launches.get("beam_scan", 0),
+         "max_abs_err": k1_err, "ms": k1_s * 1e3,
+         "plain_ms": k1_plain_s * 1e3},
+        {"name": "upem_moves", "route": "cuda",
+         "source": "floria_tpu_torch/csrc/upem_moves.cu",
+         "replaces": "floria_tpu/kernels/upem_batch.py:259",
+         "launches": launches.get("upem_moves", 0),
+         "max_abs_err": k4_err, "ms": k4_s * 1e3,
+         "plain_ms": k4_plain_s * 1e3}]})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

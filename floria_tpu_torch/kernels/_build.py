@@ -1,0 +1,119 @@
+"""Build and bind the port's CUDA kernels.
+
+All `csrc/*.cu` sources compile with nvcc for `sm_90a` into one shared
+library with a plain C interface (`build/floria_tpu_torch/
+libfloria_tpu_torch.so` under the repository root), loaded with ctypes.
+The build runs at first use, never at import, and is redone whenever a
+source is newer than the library. A failed build raises.
+
+`-fmad=false` keeps every multiply and add separately rounded, as
+PyTorch's elementwise kernels round them, so the kernels' f64 prune
+arithmetic matches the plain PyTorch versions on the same card.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "floria_tpu_torch")
+LIB_PATH = os.path.join(BUILD_DIR, "libfloria_tpu_torch.so")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# nvcc's -Xptxas -v report of the last build (registers, shared memory,
+# spills per kernel); empty when the library was current.
+build_log: str = ""
+
+
+# Plain-integer launch counts by kernel name. A wrapper adds one where it
+# launches its kernel and nowhere else.
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "floria_tpu_torch cannot be built")
+    return path
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    lib_t = os.path.getmtime(LIB_PATH)
+    deps = _sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(p) > lib_t for p in deps)
+
+
+def build(force: bool = False) -> float:
+    """Compile the kernels if needed; returns the seconds spent (0.0
+    when the library was current). Raises on a failed build."""
+    global build_log
+    if not force and not _stale():
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = LIB_PATH + f".tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+    os.replace(tmp, LIB_PATH)
+    build_log = proc.stderr
+    return time.time() - t0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.floria_beam_scan.restype = ctypes.c_int
+    lib.floria_beam_scan.argtypes = (
+        [P] * 9          # alleles .. gmix
+        + [P] * 2        # counts, hist scratch
+        + [P] * 7        # records, scores, live, assign
+        + [I] * 10       # G R S P A W T1 window dedup rec16
+        + [D, P])        # cutoff, stream
+    lib.floria_upem_moves.restype = ctypes.c_int
+    lib.floria_upem_moves.argtypes = [P] * 7 + [I] * 3 + [P]
+
+
+def get_lib() -> ctypes.CDLL:
+    """The bound kernel library, building it first when needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIB_PATH)
+            _bind(lib)
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a C entry reported a CUDA error (its
+    cudaGetLastError() right after the launch)."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")

@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+same card, bitwise: K1 (beam scan + traceback) and K4 (UPEM move walk).
+
+CUDA kernels have no CPU mode, so these tests need a card and skip
+without one (decided inside the fixture). On a machine with a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import dedup_case, windowed_case
+from floria_tpu_torch.kernels import _build
+from floria_tpu_torch.kernels import beam as TB
+from floria_tpu_torch.kernels import upem_batch as TU
+from test_beam_pallas import _make
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(dev, alleles, weights, nreads, eps, nparts, P, W,
+                     A=2, window=0):
+    """(kernel result, kernel assignments, plain result, plain
+    assignments), all on `dev`."""
+    al, wt, nr, ep, npt = TB._inputs(alleles, weights, nreads, eps,
+                                     nparts, dev)
+    S = al.shape[-1]
+    window = S if window <= 0 or window >= S else window
+    prep = TB._prepare(al, wt, ep, A, P, window, True)
+    args = (al, wt, nr, *prep[:2], npt, *prep[2:])
+    kw = dict(P=P, W=W, A=A, window=window, dedup=True)
+    got, asg = TB.beam_scan_cuda(*args, **kw)
+    ref = TB.beam_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return got, asg, ref, TB.traceback_batch(ref)
+
+
+def _assert_same(got, asg, ref, ref_asg):
+    for name, a, b in zip(ref._fields + ("assign",), tuple(ref) + (ref_asg,),
+                          tuple(got) + (asg,)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+
+
+def _random_case(G, R, S, P, seed, nparts, A=2):
+    alleles, weights = _make(G, R, S, P, seed, A=A)
+    nreads = np.array([R - (g % 7) for g in range(G)], np.int32)
+    return (alleles, weights, nreads, np.full(G, 0.03, np.float32),
+            np.asarray(nparts, np.int32))
+
+
+@pytest.mark.parametrize("G,R,S,P,W,seed,nparts,A", [
+    (3, 40, 64, 3, 10, 0, (3, 2, 3), 2),     # mixed parts, padded reads
+    (2, 60, 128, 5, 10, 2, (5, 4), 2),
+    (4, 20, 64, 2, 10, 3, (2, 2, 2, 2), 2),  # R <= warm-up: no main records
+    (2, 40, 64, 5, 30, 4, (5, 3), 2),        # B1 = 150: int16 records
+    (2, 50, 64, 3, 10, 5, (3, 2), 4),        # four alleles
+    (1, 2100, 48, 2, 3, 6, (2,), 2),         # R > 2048
+])
+def test_beam_kernel_matches_plain(dev, G, R, S, P, W, seed, nparts, A):
+    got, asg, ref, ref_asg = _kernel_vs_plain(
+        dev, *_random_case(G, R, S, P, seed, nparts, A), P, W, A=A)
+    _assert_same(got, asg, ref, ref_asg)
+
+
+def test_beam_kernel_windowed_matches_plain_and_full(dev):
+    *inp, P = windowed_case(G=2, R=80, S=1024, span=120)
+    win = _kernel_vs_plain(dev, *inp, P, 10, window=256)
+    _assert_same(*win)
+    full = _kernel_vs_plain(dev, *inp, P, 10)
+    for name, a, b in zip(win[0]._fields, win[0], full[0]):
+        assert torch.equal(a, b), name
+    assert torch.equal(win[1], full[1])
+
+
+def test_beam_kernel_dedup_case_matches_plain(dev):
+    *inp, P = dedup_case()
+    _assert_same(*_kernel_vs_plain(dev, *inp, P, 10))
+
+
+@pytest.mark.parametrize("ploidy,seed", [(2, 0), (3, 1), (5, 2)])
+def test_move_walk_kernel_matches_plain(dev, ploidy, seed):
+    args = _random_case(6, 64, 128, ploidy, seed, [ploidy] * 6)
+    al, wt, nr, ep, npt = TB._inputs(*args, dev)
+    _res, asg = TB.beam_search_traceback(al, wt, nr, ep, npt, ploidy, 10,
+                                         max_alleles=2, device=dev)
+    assign = asg.to(torch.int32).contiguous()
+    diff, _score = TU._eval_diff_score(al, wt, assign, ep, ploidy, 2)
+    sizes0, order, n_valid = TU._move_candidates(assign, diff, nr)
+    got = TU.apply_moves_cuda(assign, order, n_valid, sizes0)
+    want = TU.apply_moves_plain(assign, order, n_valid, sizes0)
+    assert torch.equal(got, want)
+
+
+def test_wrappers_count_launches_and_check_inputs(dev):
+    args = _random_case(2, 30, 32, 2, 1, (2, 2))
+    _build.LAUNCHES.clear()
+    TB.beam_search_traceback(*args, 2, 10, max_alleles=2, device=dev)
+    assert _build.LAUNCHES["beam_scan"] == 1
+    assign = torch.zeros((2, 30), dtype=torch.int32, device=dev)
+    order = torch.zeros((2, 60), dtype=torch.int64, device=dev)
+    n_valid = torch.zeros(2, dtype=torch.int64, device=dev)
+    sizes0 = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        TU.apply_moves_cuda(assign, order.to(torch.int32), n_valid, sizes0)
+    assert _build.LAUNCHES["upem_moves"] == 0
+    TU.apply_moves_cuda(assign, order, n_valid, sizes0)
+    assert _build.LAUNCHES["upem_moves"] == 1
