@@ -15,13 +15,18 @@ each; any failure raises (exit code != 0):
   4. e2e      - the port's CLI on bench.py's `ecoli2` community (1 Mbp,
                 2 strains, 50k SNPs, 50x per strain): a first run (its
                 kernel launch counts), a second run (its K1 dispatches
-                recorded), a third run under torch.profiler
-                (the card's busy share) and a `--device cpu` run; all four
-                must write the same bytes;
+                and K5 partitions recorded), a third run under
+                torch.profiler (the card's busy share) and a `--device
+                cpu` run; all four must write the same bytes;
   5. dispatch - K1 and K4 against their plain versions on the card at the
                 main path's own largest beam dispatch, recorded in phase
                 4, and on its blocks at the next ploidy, timed;
-  6. parity   - the port's CLI on the `long3` community must write the
+  6. realign  - K5 (the realignment NW) against its plain version on the
+                card (best alleles and scores) and against the native C++
+                Gotoh on the host, bitwise, at the main path's own
+                partition recorded in phase 4 (timed) and on adversarial
+                windows at 4 alleles;
+  7. parity   - the port's CLI on the `long3` community must write the
                 oracle pipeline's bytes (tests/data/long3_oracle.json).
 Times are medians of 3 after one warm run, CUDA-synchronized. The last
 lines are the kernel table, the nvidia-smi line and
@@ -132,6 +137,48 @@ def windowed_case(G=4, R=320, S=2048, span=200, seed=3):
     nreads[-1] = R - 17
     return (alleles, weights, nreads, np.full(G, 0.02, np.float32),
             np.full(G, 3, np.int32), 3)
+
+
+def nw_case(n=1000, T=97, A=4, seed=0):
+    """Realignment jobs at A alleles, with the adversarial windows of
+    tests/test_native_nw.py (exact variants, scattered mismatches, 1-3
+    base shifts, random windows) and a fifth kind that drives the DP to
+    its extremes (a homopolymer query against a homopolymer row of
+    another base, or a 16-base shift); allele counts 0..A. Returns numpy
+    (q_packed [n, 16] u8, si [n] i32, nal [n] i32, ref_tab [T, 32] u8,
+    al_tab [T, A] u8)."""
+    rng = np.random.default_rng(seed)
+    W, F = 32, 16
+    ref_tab = rng.integers(0, 16, (T, W)).astype(np.uint8)
+    ref_tab[::5] = 1
+    al_tab = rng.integers(1, 16, (T, A)).astype(np.uint8)
+    nal_tab = rng.integers(0, A + 1, T).astype(np.int32)
+    si = rng.integers(0, T, n).astype(np.int32)
+    q = np.empty((n, W), np.uint8)
+    for i in range(n):
+        kind = i % 5
+        if kind == 4 and i % 10 == 4:
+            si[i] = 5 * rng.integers(0, (T + 4) // 5)
+        t = si[i]
+        w = ref_tab[t].copy()
+        if kind == 0:
+            w[F] = al_tab[t, rng.integers(0, max(1, nal_tab[t]))]
+        elif kind == 1:
+            w[rng.integers(0, W, rng.integers(1, 6))] = rng.integers(0, 16)
+        elif kind == 2:
+            s = int(rng.integers(1, 4))
+            w = np.concatenate([w[s:], rng.integers(0, 16, s).astype(
+                np.uint8)])
+        elif kind == 3:
+            w = rng.integers(0, 16, W).astype(np.uint8)
+        elif t % 5 == 0:
+            w[:] = 2
+        else:
+            w = np.concatenate([rng.integers(0, 16, F).astype(np.uint8),
+                                w[:F]])
+        q[i] = w
+    q_packed = (q[:, 0::2] | (q[:, 1::2] << 4)).astype(np.uint8)
+    return q_packed, si, nal_tab[si], ref_tab, al_tab
 
 
 def _assert_beam_equal(label, ref, ref_asg, got, asg) -> float:
@@ -246,18 +293,21 @@ def assert_same_tree(a, b, what):
 
 
 class DispatchRecorder:
-    """Keeps the inputs and outputs of the sweep's beam calls (K1) while
-    active, so the kernels can be checked and timed at the main path's
-    own dispatches."""
+    """Keeps the inputs and outputs of the sweep's beam calls (K1) and of
+    the realignment's device NW calls (K5) while active, so the kernels
+    can be checked and timed at the main path's own dispatches."""
 
     def __init__(self):
-        from floria_tpu_torch.kernels import beam
+        from floria_tpu_torch.kernels import beam, realign
 
         self.module = beam
+        self.realign = realign
         self.beam = []
+        self.nw = []
 
     def __enter__(self):
         self._beam = self.module.beam_search_traceback
+        self._nw = self.realign.nw_best
 
         def beam(alleles, weights, nr, ep, nparts, P, W, **kw):
             out = self._beam(alleles, weights, nr, ep, nparts, P, W, **kw)
@@ -265,11 +315,18 @@ class DispatchRecorder:
                               kw, out))
             return out
 
+        def nw(*args):
+            out = self._nw(*args)
+            self.nw.append((args, out))
+            return out
+
         self.module.beam_search_traceback = beam
+        self.realign.nw_best = nw
         return self
 
     def __exit__(self, *exc):
         self.module.beam_search_traceback = self._beam
+        self.realign.nw_best = self._nw
 
 
 def device_busy_s(prof) -> float:
@@ -333,7 +390,7 @@ def e2e_ecoli2(tmp):
     rec["launches"] = launches
     rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     emit(rec)
-    for k in ("beam_scan", "upem_moves"):
+    for k in ("beam_scan", "upem_moves", "nw_best"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  f"ecoli2 run: {launches}")
@@ -345,6 +402,9 @@ def e2e_ecoli2(tmp):
     if len(recorder.beam) != launches["beam_scan"]:
         raise AssertionError(f"{len(recorder.beam)} beam dispatches in "
                              f"the second run, {launches} in the first")
+    if len(recorder.nw) != launches["nw_best"]:
+        raise AssertionError(f"{len(recorder.nw)} NW partitions in the "
+                             f"second run, {launches} in the first")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -390,6 +450,72 @@ def check_dispatches(dev, recorder):
         k4 = check_moves(*ups, P, A=kw["max_alleles"], label=label)
         out.append((k1_err, k_s, p_s, *k4))
     return out
+
+
+def check_nw(dev, case, label, timing=False):
+    """K5 against its plain version on the card (best alleles and every
+    allele's score) and against the native C++ Gotoh on the host (best
+    alleles), bitwise. `case` = (q_packed, si, nal, ref_tab, al_tab,
+    a_max), tensors on the card. Returns (max_abs_err, kernel_s,
+    plain_s, best)."""
+    from floria_tpu_torch.kernels import realign as tr
+
+    q, si, nal, ref_tab, al_tab, a_max = case
+    n = q.shape[0]
+    scores = torch.empty((n, a_max), dtype=torch.int32, device=dev)
+    got = tr.nw_best_cuda(q, si, nal, ref_tab, al_tab, a_max, scores=scores)
+    ref = tr.nw_best_plain(q, si, nal, ref_tab, al_tab, a_max)
+    ref_sc = tr.nw_allele_scores_plain(q, si, nal, ref_tab, al_tab, a_max)
+    err = max(max_abs_diff(ref, got), max_abs_diff(ref_sc, scores))
+    if err != 0.0 or not (torch.equal(ref, got)
+                          and torch.equal(ref_sc, scores)):
+        raise AssertionError(f"K5 {label} differs from the plain NW "
+                             f"(max abs {err})")
+    host = [x.cpu().numpy() for x in (q, si, nal, ref_tab, al_tab)]
+    cpp = tr.native.nw_batch(*host)
+    if not np.array_equal(cpp, got.cpu().numpy()):
+        raise AssertionError(f"K5 {label} differs from the native C++ "
+                             "Gotoh")
+    rec = {"phase": "realign", "kernel": "nw_best", "case": label, "N": n,
+           "T": int(ref_tab.shape[0]), "A": int(al_tab.shape[1]),
+           "a_max": a_max, "nal": torch.unique(nal).tolist(),
+           "calls_nonzero": int((got != 0).sum()),
+           "plain_bitwise_equal": True, "cpp_bitwise_equal": True}
+    k_s = p_s = None
+    if timing:
+        k_s = timed(lambda: tr.nw_best_cuda(q, si, nal, ref_tab, al_tab,
+                                            a_max))
+        p_s = timed(lambda: tr.nw_best_plain(q, si, nal, ref_tab, al_tab,
+                                             a_max))
+        rec.update(
+            kernel_ms=k_s * 1e3, plain_ms=p_s * 1e3,
+            cpp_host_ms=timed(lambda: tr.native.nw_batch(*host)) * 1e3,
+            cpp_host_threads=tr.native.threads.num_threads(),
+            job_upload_ms=timed(lambda: [torch.from_numpy(x).to(dev)
+                                         for x in host[:3]]) * 1e3)
+    emit(rec)
+    return err, k_s, p_s, got
+
+
+def check_realign(dev, recorder):
+    """K5 at the main path's own NW partitions, recorded in phase 4 (the
+    first one timed), and on adversarial windows at 4 alleles. Returns
+    (max_abs_err, kernel_s, plain_s) of the first partition."""
+    out = None
+    err = 0.0
+    for i, (args, main_best) in enumerate(recorder.nw):
+        e, k_s, p_s, got = check_nw(dev, args, f"ecoli2 partition {i}",
+                                    timing=out is None)
+        if not torch.equal(got, main_best):
+            raise AssertionError(f"K5 ecoli2 partition {i} differs from "
+                                 "its own main-path result")
+        err = max(err, e)
+        if out is None:
+            out = (k_s, p_s)
+    case = [torch.from_numpy(x).to(dev)
+            for x in nw_case(n=20_011, T=997, A=4, seed=5)]
+    err = max(err, check_nw(dev, (*case, 4), "adversarial A=4")[0])
+    return (err, *out)
 
 
 def parity_long3(tmp):
@@ -464,6 +590,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="floria_smoke_") as tmp:
         launches, recorder = e2e_ecoli2(tmp)
         per_dispatch = check_dispatches(dev, recorder)
+        k5_err, k5_s, k5_plain_s = check_realign(dev, recorder)
         del recorder
         parity_long3(tmp)
 
@@ -484,7 +611,13 @@ def main() -> None:
          "replaces": "floria_tpu/kernels/upem_batch.py:259",
          "launches": launches.get("upem_moves", 0),
          "max_abs_err": k4_err, "ms": k4_s * 1e3,
-         "plain_ms": k4_plain_s * 1e3}]})
+         "plain_ms": k4_plain_s * 1e3},
+        {"name": "nw_best", "route": "cuda",
+         "source": "floria_tpu_torch/csrc/nw_best.cu",
+         "replaces": "floria_tpu/kernels/realign.py:94",
+         "launches": launches.get("nw_best", 0),
+         "max_abs_err": k5_err, "ms": k5_s * 1e3,
+         "plain_ms": k5_plain_s * 1e3}]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,12 +22,12 @@ __all__ = ["collect_contig_records", "finalize_frags"]
 
 def collect_contig_records(main_bam, short_bam, contig_vcf: ContigVcf,
                            options: Options, ref_seq: Optional[bytes],
-                           contig: str, realign_pool=None
+                           contig: str, realign_pool=None, *, device
                            ) -> Dict[str, List[Tuple[int, Frag]]]:
     """Record-level extraction + realignment queueing
     (file_reader.rs:343-462). With a shared realign_pool the flush is
     the caller's job and must happen before finalize_frags; without
-    one, realignment flushes here."""
+    one, realignment flushes here, on `device`."""
     filter_supplementary = True
     use_supplementary = not options.dont_use_supp_aln
 
@@ -64,5 +64,5 @@ def collect_contig_records(main_bam, short_bam, contig_vcf: ContigVcf,
             id_to_frags.setdefault(record.qname, []).append(
                 (record.flag, frag))
     if realigner is not None and realign_pool is None:
-        realigner.flush()
+        realigner.flush(device)
     return id_to_frags

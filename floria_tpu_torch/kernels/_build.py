@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-All `csrc/*.cu` sources compile with nvcc for `sm_90a` into one shared
-library with a plain C interface (`build/floria_tpu_torch/
-libfloria_tpu_torch.so` under the repository root), loaded with ctypes.
-The build runs at first use, never at import, and is redone whenever a
-source is newer than the library. A failed build raises.
+Each `csrc/*.cu` source compiles with nvcc for `sm_90a` into an object,
+all sources in parallel, and the objects link into one shared library
+with a plain C interface (`build/floria_tpu_torch/libfloria_tpu_torch.so`
+under the repository root), loaded with ctypes. The build runs at first
+use, never at import, and is redone whenever a source is newer than the
+library. A failed build raises.
 
 `-fmad=false` keeps every multiply and add separately rounded, as
 PyTorch's elementwise kernels round them, so the kernels' f64 prune
@@ -29,9 +30,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "floria_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libfloria_tpu_torch.so")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -74,16 +75,34 @@ def build(force: bool = False) -> float:
     if not force and not _stale():
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIB_PATH + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    tag = f".tmp{os.getpid()}"
     t0 = time.time()
+    compiles = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, os.path.basename(src) + tag + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = [proc.communicate()[1] for _cmd, _obj, proc in compiles]
+    for (cmd, _obj, proc), err in zip(compiles, logs):
+        _raise_if_failed(proc.returncode, cmd, err)
+    tmp = LIB_PATH + tag
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+           *(obj for _cmd, obj, _proc in compiles)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+    _raise_if_failed(proc.returncode, cmd, proc.stderr)
     os.replace(tmp, LIB_PATH)
-    build_log = proc.stderr
+    for _cmd, obj, _proc in compiles:
+        os.remove(obj)
+    build_log = "".join(logs)
     return time.time() - t0
+
+
+def _raise_if_failed(rc: int, cmd, stderr: str) -> None:
+    if rc != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+            rc, " ".join(cmd), stderr[-8000:]))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -97,6 +116,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         + [D, P])        # cutoff, stream
     lib.floria_upem_moves.restype = ctypes.c_int
     lib.floria_upem_moves.argtypes = [P] * 7 + [I] * 3 + [P]
+    lib.floria_nw_best.restype = ctypes.c_int
+    lib.floria_nw_best.argtypes = [P] * 7 + [ctypes.c_longlong, I, I, P]
 
 
 def get_lib() -> ctypes.CDLL:

@@ -1,9 +1,10 @@
 """Per-contig pipeline orchestration on torch (port of
 floria_tpu/pipeline.py).
 
-ingest -> realign (native C++) -> (hybrid polish) -> (monomorphic
-filter) -> block phasing on the device -> hap-graph -> LP flow ->
-widest paths -> final assignment -> SNP-less gap reads -> outputs.
+ingest -> realign (native C++ Gotoh, or the device NW for large
+partitions) -> (hybrid polish) -> (monomorphic filter) -> block phasing
+on the device -> hap-graph -> LP flow -> widest paths -> final
+assignment -> SNP-less gap reads -> outputs.
 Contigs run in groups: realignment jobs and SNP-block instances of a
 whole group share one flush and one set of device batches. Every host
 stage is floria_tpu's, imported unchanged; only the phasing dispatch and
@@ -191,12 +192,12 @@ def _run_group(group: List[str], main_bam, short_bam,
         col_t = time.time()
         id_map = collect_contig_records(main_bam, short_bam, cv, options,
                                         ref_seq, contig,
-                                        realign_pool=pool)
+                                        realign_pool=pool, device=device)
         timing.add("ingest.collect", time.time() - col_t)
         collected.append((contig, contig_out_dir, cv, ref_seq, id_map))
     if pool is not None:
         flush_t = time.time()
-        flush_pool(pool)
+        flush_pool(pool, device=device)
         timing.add("realign_dispatch", time.time() - flush_t)
 
     states: List[_ContigState] = []

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-same card, bitwise: K1 (beam scan + traceback) and K4 (UPEM move walk).
+same card, bitwise: K1 (beam scan + traceback), K4 (UPEM move walk) and
+K5 (realignment NW).
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -11,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dedup_case, windowed_case
+from chip_smoke import dedup_case, nw_case, windowed_case
 from floria_tpu_torch.kernels import _build
 from floria_tpu_torch.kernels import beam as TB
+from floria_tpu_torch.kernels import realign as TR
 from floria_tpu_torch.kernels import upem_batch as TU
 from test_beam_pallas import _make
 
@@ -115,3 +117,40 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     assert _build.LAUNCHES["upem_moves"] == 0
     TU.apply_moves_cuda(assign, order, n_valid, sizes0)
     assert _build.LAUNCHES["upem_moves"] == 1
+
+
+@pytest.mark.parametrize("n,A,a_max,nal_set", [
+    (1, 2, 2, 0), (1, 4, 4, 1), (1, 4, 4, None),
+    (1000, 2, 2, None),      # 1000 = 7 blocks of 128 + 104
+    (1000, 4, 4, None),      # nal 0..4
+    (333, 4, 2, None),       # the biallelic partition of a 4-column table
+])
+def test_nw_kernel_matches_plain(dev, n, A, a_max, nal_set):
+    q, si, nal, ref_tab, al_tab = nw_case(n=n, T=97, A=A, seed=n + A)
+    if nal_set is not None:
+        nal[:] = nal_set
+    t = [torch.from_numpy(x).to(dev) for x in (q, si, nal, ref_tab, al_tab)]
+    scores = torch.empty((n, a_max), dtype=torch.int32, device=dev)
+    got = TR.nw_best_cuda(*t, a_max, scores=scores)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TR.nw_best_plain(*t, a_max))
+    assert torch.equal(scores, TR.nw_allele_scores_plain(*t, a_max))
+    if a_max == A:
+        assert np.array_equal(got.cpu().numpy(),
+                              TR.native.nw_batch(q, si, nal, ref_tab, al_tab))
+
+
+def test_nw_wrapper_counts_launches_and_checks_inputs(dev):
+    q, si, nal, ref_tab, al_tab = (torch.from_numpy(x).to(dev)
+                                   for x in nw_case(n=50, A=2))
+    _build.LAUNCHES.clear()
+    with pytest.raises(ValueError):
+        TR.nw_best(q, si.long(), nal, ref_tab, al_tab, 2)
+    with pytest.raises(ValueError):
+        TR.nw_best(q, si, nal, ref_tab, al_tab, 3)
+    with pytest.raises(ValueError):
+        TR.nw_best(q, si + len(ref_tab), nal, ref_tab, al_tab, 2)
+    assert _build.LAUNCHES["nw_best"] == 0
+    got = TR.nw_best(q, si, nal, ref_tab, al_tab, 2)
+    assert _build.LAUNCHES["nw_best"] == 1
+    assert got.device.type == "cuda" and got.dtype == torch.int8
