@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-It imports the standard library, numpy, torch, the port and bench.py's
-`make_workload` (bench.py's module level imports only numpy); nothing of
-jax or of the JAX package `floria_tpu` directly. Phases, one JSON line
+It imports the standard library, numpy, torch and the port; nothing of
+jax or of the JAX package `floria_tpu`, and it fails if either is loaded
+by the end of the run. Phases, one JSON line
 each; any failure raises (exit code != 0):
   1. device   - the card's name and power limit (nvidia-smi), torch/CUDA;
-  2. build    - nvcc builds the kernels from floria_tpu_torch/csrc/;
+  2. build    - nvcc builds the kernels from floria_tpu_torch/csrc/ while
+                g++ builds the port's copy of the native C++ library
+                from native/ (floria_tpu_torch/native.py);
   3. kernels  - K1 (beam scan) and K4 (UPEM move walk) against their plain
                 PyTorch versions, bitwise, at G=8 R=320 S=2048 (mixed
-                ploidies 2..5; K1 also against the plain scan on the
-                CPU), plus a windowed and a dedup case;
+                ploidies 2..5, K1 in clusters of 8 CTAs; K1 also against
+                the plain scan on the CPU), timed, plus a windowed and a
+                dedup case;
   4. e2e      - the port's CLI on bench.py's `ecoli2` community (1 Mbp,
                 2 strains, 50k SNPs, 50x per strain): a first run (its
                 kernel launch counts), a second run (its K1 dispatches
@@ -27,10 +30,20 @@ each; any failure raises (exit code != 0):
                 partition recorded in phase 4 (timed) and on adversarial
                 windows at 4 alleles;
   7. parity   - the port's CLI on the `long3` community must write the
-                oracle pipeline's bytes (tests/data/long3_oracle.json).
-Times are medians of 3 after one warm run, CUDA-synchronized. The last
-lines are the kernel table, the nvidia-smi line and
-{"ok": true, "device": {...}}.
+                oracle pipeline's bytes (tests/data/long3_oracle.json);
+  8. summary  - K1's times at the `ecoli2` dispatch (P=2, P=3) and on the
+                sweep beside their bounds and the `ecoli2` launch counts;
+                the run fails if any jax or `floria_tpu` module is loaded.
+Times are medians of 3 after one warm run, CUDA-synchronized; every
+record that holds a time carries the card's name and power limit
+(`card`). Each kernel's bound is computed from this run's inputs: the
+larger of the bytes the function must move (each input read once, each
+output written once) over 3.35 TB/s and its operations over 67 T/s (the
+H100 SXM's HBM rate and its f32 rate outside the tensor cores, NVIDIA's
+data sheet; integer operations are counted at that rate, which makes the
+bound a lower one). No single PyTorch call computes any of the three
+kernels, so `library_ms` is null. The last lines are the kernel table,
+the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,11 +57,17 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# `nvidia-smi` name and power limit, set in main() and written beside
+# every time.
+CARD = None
 GOLDEN_LONG3 = os.path.join(REPO, "tests", "data", "long3_oracle.json")
 # bench.py's `ecoli2` e2e community (bench.py:134).
 ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
@@ -56,8 +75,87 @@ ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
               read_length_sd=1_500.0, error_rate=0.02, seed=11)
 
 
+def make_workload(G, R, S, num_strains=3, epsilon=0.02, seed=0):
+    """bench.py's `make_workload` (the kernel sweep's synthetic blocks:
+    G instances of R reads, each covering half of S sites, sorted by
+    start), copied so the smoke needs nothing of the JAX package's
+    benchmark; a CPU test holds the two equal."""
+    rng = np.random.default_rng(seed)
+    strains = rng.integers(0, 2, (G, num_strains, S))
+    origin = rng.integers(0, num_strains, (G, R))
+    span = S // 2
+    starts = rng.integers(0, S - span, (G, R))
+    alleles = np.full((G, R, S), -1, dtype=np.int8)
+    weights = np.zeros((G, R, S), dtype=np.float32)
+    for g in range(G):
+        for r in range(R):
+            s0 = starts[g, r]
+            hap = strains[g, origin[g, r], s0:s0 + span].copy()
+            err = rng.random(span) < epsilon
+            hap[err] = 1 - hap[err]
+            alleles[g, r, s0:s0 + span] = hap
+            weights[g, r, s0:s0 + span] = 1.0 - 10.0 ** (
+                rng.integers(10, 40, span) / -10.0)
+    order = np.argsort(starts, axis=1, kind="stable")
+    alleles = np.take_along_axis(alleles, order[:, :, None], axis=1)
+    weights = np.take_along_axis(weights, order[:, :, None], axis=1)
+    num_reads = np.full(G, R, dtype=np.int32)
+    eps = np.full(G, epsilon, dtype=np.float32)
+    return alleles, weights, num_reads, eps
+
+
 def emit(obj) -> None:
+    if CARD is not None and any(k.endswith(("_ms", "_s")) for k in obj):
+        obj = {**obj, "card": CARD}
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time for `nbytes` of traffic and
+    `ops` operations on the card."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def k1_bound(al, nr, npt, P, W):
+    """K1's bound on these inputs: each real read's alleles (1 B) and
+    weights (4 B) over its covered span, read once; the records, scores,
+    live flags and assignments written once; per (active part, covered
+    column) of each read one comparison and one addition against at
+    least one slot."""
+    G, R, S = al.shape
+    cov = al >= 0
+    real = (torch.arange(R, device=al.device)[None, :]
+            < nr.long()[:, None]) & cov.any(-1)
+    first = torch.argmax(cov.to(torch.uint8), dim=-1)
+    last = S - 1 - torch.argmax(cov.flip(-1).to(torch.uint8), dim=-1)
+    span = int(torch.where(real, last - first + 1, 0).sum())
+    ncov = (cov & real[..., None]).sum(dim=(1, 2)).long()
+    T1 = min(25, R)
+    rec = 1 if P * W <= 127 else 2
+    Bf = W if R > T1 else P * W
+    nbytes = (span * 5 + G * 24
+              + G * (2 * T1 * P * W + 2 * (R - T1) * W + R) * rec
+              + G * Bf * 9)
+    return bound(nbytes, 2 * int((ncov * npt.long()).sum()))
+
+
+def k4_bound(assign, order, n_valid, sizes0):
+    """K4's bound: its inputs read and its assignment written once, a
+    few operations per candidate move walked."""
+    nbytes = (assign.numel() * 4 * 2 + order.numel() * 8
+              + n_valid.numel() * 8 + sizes0.numel() * 4)
+    return bound(nbytes, 4 * int(n_valid.sum()))
+
+
+def k5_bound(q, si, nal, ref_tab, al_tab, a_max):
+    """K5's bound: the jobs and tables read and one byte per job
+    written once; 32 x 32 DP cells of ten integer operations for each
+    allele a job tries (min(nal, a_max))."""
+    nbytes = (q.numel() + si.numel() * 4 + nal.numel() * 4
+              + ref_tab.numel() + al_tab.numel() + q.shape[0])
+    cells = 32 * 32 * int(nal.clamp(max=a_max).sum())
+    return bound(nbytes, 10 * cells)
 
 
 def nvidia_smi_line() -> str:
@@ -199,7 +297,8 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
                window=0, label="", timing=False, cpu_ref=False):
     """K1 against the plain scan on the same card (and, with cpu_ref, on
     the CPU); inputs are numpy arrays or tensors. Returns (max_abs_err,
-    kernel_s, plain_s, (alleles, weights, num_reads, eps, assign))."""
+    kernel_s, plain_s, (alleles, weights, num_reads, eps, assign),
+    (bound_ms, bound_by))."""
     from floria_tpu_torch.kernels import beam as tb
 
     al, wt, nr, ep, npt = tb._inputs(alleles, weights, nreads, eps,
@@ -209,7 +308,7 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
     prep = tb._prepare(al, wt, ep, A, P, window, True)
     args = (al, wt, nr, *prep[:2], npt, *prep[2:])
     kw = dict(P=P, W=W, A=A, window=window, dedup=True)
-    got, asg = tb.beam_scan_cuda(*args, **kw)
+    got, asg = tb.beam_scan_cuda(*args[:6], **kw)
     ref = tb.beam_scan_plain(*args, **kw)
     err = _assert_beam_equal(label, ref, tb.traceback_batch(ref), got,
                              asg)
@@ -223,23 +322,28 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
             type(got)(*(x.cpu() for x in got)), asg.cpu()))
     k_s = p_s = None
     if timing:
-        k_s = timed(lambda: tb.beam_scan_cuda(*args, **kw))
+        k_s = timed(lambda: tb.beam_scan_cuda(*args[:6], **kw))
         p_s = timed(lambda: tb.traceback_batch(
             tb.beam_scan_plain(*args, **kw)))
+    bnd = k1_bound(al, nr, npt, P, W)
     emit({"phase": "kernels", "kernel": "beam_scan", "case": label,
           "G": int(al.shape[0]), "R": int(al.shape[1]), "S": int(S),
           "P": P, "num_parts": sorted(set(npt.tolist())),
-          "window": int(window), "bitwise_equal": True,
+          "window": int(window),
+          "cluster_width": tb.cluster_width(int(al.shape[0])),
+          "bitwise_equal": True,
           "cpu_plain_bitwise_equal": cpu_ref or None,
           "cpu_plain_s": cpu_s,
           "kernel_ms": None if k_s is None else k_s * 1e3,
-          "plain_ms": None if p_s is None else p_s * 1e3})
-    return err, k_s, p_s, (al, wt, nr, ep, asg)
+          "plain_ms": None if p_s is None else p_s * 1e3,
+          "bound_ms": bnd[0], "bound_by": bnd[1]})
+    return err, k_s, p_s, (al, wt, nr, ep, asg), bnd
 
 
 def check_moves(al, wt, nr, ep, asg, P, A=2, label=""):
     """K4 against the host walk on the first UPEM iteration's inputs
-    (the beam's assignments); timed."""
+    (the beam's assignments); timed. Returns (max_abs_err, kernel_s,
+    plain_s, (bound_ms, bound_by))."""
     from floria_tpu_torch.kernels import upem_batch as tu
 
     assign = asg.to(torch.int32).contiguous()
@@ -255,12 +359,13 @@ def check_moves(al, wt, nr, ep, asg, P, A=2, label=""):
                                             sizes0))
     p_s = timed(lambda: tu.apply_moves_plain(assign, order, n_valid,
                                              sizes0))
+    bnd = k4_bound(assign, order, n_valid, sizes0)
     emit({"phase": "kernels", "kernel": "upem_moves", "case": label,
           "G": int(assign.shape[0]), "R": int(assign.shape[1]), "P": P,
           "moves_applied": int((got != assign).sum()),
           "bitwise_equal": True, "kernel_ms": k_s * 1e3,
-          "plain_ms": p_s * 1e3})
-    return err, k_s, p_s
+          "plain_ms": p_s * 1e3, "bound_ms": bnd[0], "bound_by": bnd[1]})
+    return err, k_s, p_s, bnd
 
 
 def run_cli(sim_dir, out_dir, device="cuda", extra=()):
@@ -431,8 +536,8 @@ def check_dispatches(dev, recorder):
     recorded beam dispatch: as dispatched, and on the same blocks at the
     next ploidy (the dispatch a further sweep level gives them). K4 runs
     on the first UPEM iteration's input, the beam's assignments. Returns
-    [(k1_err, k1_s, k1_plain_s, k4_err, k4_s, k4_plain_s)], the
-    dispatch as made first."""
+    [(k1_err, k1_s, k1_plain_s, k1_bound, k4_err, k4_s, k4_plain_s,
+    k4_bound)], the dispatch as made first."""
     (al, wt, nr, ep, npt), P0, W, kw, (_res, asg) = max(
         recorder.beam, key=lambda b: b[0][0].shape[0])
     out = []
@@ -441,14 +546,14 @@ def check_dispatches(dev, recorder):
         if P != P0:
             label += " (same blocks)"
             npt = torch.full_like(npt, P)
-        k1_err, k_s, p_s, ups = check_beam(
+        k1_err, k_s, p_s, ups, k1_bnd = check_beam(
             dev, al, wt, nr, ep, npt, P, W=W, A=kw["max_alleles"],
             window=kw["window"], label=label, timing=True)
         if P == P0 and not torch.equal(asg, ups[4]):
             raise AssertionError(f"{label}: K1 differs from its own "
                                  "main-path result")
         k4 = check_moves(*ups, P, A=kw["max_alleles"], label=label)
-        out.append((k1_err, k_s, p_s, *k4))
+        out.append((k1_err, k_s, p_s, k1_bnd, *k4))
     return out
 
 
@@ -457,7 +562,7 @@ def check_nw(dev, case, label, timing=False):
     allele's score) and against the native C++ Gotoh on the host (best
     alleles), bitwise. `case` = (q_packed, si, nal, ref_tab, al_tab,
     a_max), tensors on the card. Returns (max_abs_err, kernel_s,
-    plain_s, best)."""
+    plain_s, best, (bound_ms, bound_by))."""
     from floria_tpu_torch.kernels import realign as tr
 
     q, si, nal, ref_tab, al_tab, a_max = case
@@ -476,11 +581,13 @@ def check_nw(dev, case, label, timing=False):
     if not np.array_equal(cpp, got.cpu().numpy()):
         raise AssertionError(f"K5 {label} differs from the native C++ "
                              "Gotoh")
+    bnd = k5_bound(q, si, nal, ref_tab, al_tab, a_max)
     rec = {"phase": "realign", "kernel": "nw_best", "case": label, "N": n,
            "T": int(ref_tab.shape[0]), "A": int(al_tab.shape[1]),
            "a_max": a_max, "nal": torch.unique(nal).tolist(),
            "calls_nonzero": int((got != 0).sum()),
-           "plain_bitwise_equal": True, "cpp_bitwise_equal": True}
+           "plain_bitwise_equal": True, "cpp_bitwise_equal": True,
+           "bound_ms": bnd[0], "bound_by": bnd[1]}
     k_s = p_s = None
     if timing:
         k_s = timed(lambda: tr.nw_best_cuda(q, si, nal, ref_tab, al_tab,
@@ -494,24 +601,24 @@ def check_nw(dev, case, label, timing=False):
             job_upload_ms=timed(lambda: [torch.from_numpy(x).to(dev)
                                          for x in host[:3]]) * 1e3)
     emit(rec)
-    return err, k_s, p_s, got
+    return err, k_s, p_s, got, bnd
 
 
 def check_realign(dev, recorder):
     """K5 at the main path's own NW partitions, recorded in phase 4 (the
     first one timed), and on adversarial windows at 4 alleles. Returns
-    (max_abs_err, kernel_s, plain_s) of the first partition."""
+    (max_abs_err, kernel_s, plain_s, bound) of the first partition."""
     out = None
     err = 0.0
     for i, (args, main_best) in enumerate(recorder.nw):
-        e, k_s, p_s, got = check_nw(dev, args, f"ecoli2 partition {i}",
-                                    timing=out is None)
+        e, k_s, p_s, got, bnd = check_nw(
+            dev, args, f"ecoli2 partition {i}", timing=out is None)
         if not torch.equal(got, main_best):
             raise AssertionError(f"K5 ecoli2 partition {i} differs from "
                                  "its own main-path result")
         err = max(err, e)
         if out is None:
-            out = (k_s, p_s)
+            out = (k_s, p_s, bnd)
     case = [torch.from_numpy(x).to(dev)
             for x in nw_case(n=20_011, T=997, A=4, seed=5)]
     err = max(err, check_nw(dev, (*case, 4), "adversarial A=4")[0])
@@ -551,31 +658,43 @@ def parity_long3(tmp):
           "byte_equal": sorted(golden["outputs"])})
 
 
+def loaded_reference_modules():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
+
+
 def main() -> None:
+    global CARD
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     sys.path.insert(0, REPO)
-    import bench
+    from floria_tpu_torch import native
     from floria_tpu_torch.kernels import _build
 
-    smi = nvidia_smi_line()
-    emit({"phase": "device", "nvidia_smi": smi,
+    CARD = nvidia_smi_line()
+    emit({"phase": "device", "nvidia_smi": CARD,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count()})
 
+    # Both libraries from the checkout's sources: the CUDA kernels (one
+    # nvcc per source, in parallel) while g++ builds the native C++.
     t0 = time.time()
-    _build.build(force=True)
-    _build.get_lib()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_build = pool.submit(native.get_lib)
+        _build.build(force=True)
+        _build.get_lib()
+        cuda_s = time.time() - t0
+        native_build.result()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.time() - t0,
-          "ptxas": ptxas})
+          "cuda_kernels_s": cuda_s, "ptxas": ptxas})
 
     dev = torch.device("cuda")
-    alleles, weights, nreads, eps = bench.make_workload(8, 320, 2048)
+    alleles, weights, nreads, eps = make_workload(8, 320, 2048)
     nparts = np.array([2, 3, 4, 5, 2, 3, 4, 5], np.int32)
-    k1_err, _k_s, _p_s, ups = check_beam(
+    k1_err, k1_sweep_s, _p_s, ups, k1_sweep_bnd = check_beam(
         dev, alleles, weights, nreads, eps, nparts, 5, label="sweep",
         timing=True, cpu_ref=True)
     for label, case in (("windowed", windowed_case()),
@@ -590,34 +709,42 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="floria_smoke_") as tmp:
         launches, recorder = e2e_ecoli2(tmp)
         per_dispatch = check_dispatches(dev, recorder)
-        k5_err, k5_s, k5_plain_s = check_realign(dev, recorder)
+        k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
         del recorder
         parity_long3(tmp)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    for e1, _k1, _p1, e4, _k4, _p4 in per_dispatch:
+    loaded = loaded_reference_modules()
+    if loaded:
+        raise AssertionError(f"the port loaded jax or floria_tpu: {loaded}")
+    for e1, _k1, _p1, _b1, e4, _k4, _p4, _b4 in per_dispatch:
         k1_err, k4_err = max(k1_err, e1), max(k4_err, e4)
-    _e1, k1_s, k1_plain_s, _e4, k4_s, k4_plain_s = per_dispatch[0]
-    emit({"kernels": [
-        {"name": "beam_scan", "route": "cuda",
-         "source": "floria_tpu_torch/csrc/beam_scan.cu",
-         "replaces": "floria_tpu/kernels/beam_pallas.py:427",
-         "launches": launches.get("beam_scan", 0),
-         "max_abs_err": k1_err, "ms": k1_s * 1e3,
-         "plain_ms": k1_plain_s * 1e3},
-        {"name": "upem_moves", "route": "cuda",
-         "source": "floria_tpu_torch/csrc/upem_moves.cu",
-         "replaces": "floria_tpu/kernels/upem_batch.py:259",
-         "launches": launches.get("upem_moves", 0),
-         "max_abs_err": k4_err, "ms": k4_s * 1e3,
-         "plain_ms": k4_plain_s * 1e3},
-        {"name": "nw_best", "route": "cuda",
-         "source": "floria_tpu_torch/csrc/nw_best.cu",
-         "replaces": "floria_tpu/kernels/realign.py:94",
-         "launches": launches.get("nw_best", 0),
-         "max_abs_err": k5_err, "ms": k5_s * 1e3,
-         "plain_ms": k5_plain_s * 1e3}]})
+    (_e1, k1_s, k1_plain_s, k1_bnd, _e4, k4_s, k4_plain_s,
+     k4_bnd) = per_dispatch[0]
+    emit({"phase": "k1_summary", "launches_ecoli2": launches,
+          "ecoli2_p2_ms": k1_s * 1e3,
+          "ecoli2_p3_ms": per_dispatch[1][1] * 1e3,
+          "sweep_ms": k1_sweep_s * 1e3,
+          "bound_ecoli2_p2_ms": k1_bnd[0],
+          "bound_ecoli2_p3_ms": per_dispatch[1][3][0],
+          "bound_sweep_ms": k1_sweep_bnd[0]})
+
+    def row(name, source, replaces, err, k_s, p_s, bnd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches.get(name, 0),
+                "max_abs_err": err, "ms": k_s * 1e3,
+                "plain_ms": p_s * 1e3, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        row("beam_scan", "floria_tpu_torch/csrc/beam_scan.cu",
+            "floria_tpu/kernels/beam_pallas.py:427", k1_err, k1_s,
+            k1_plain_s, k1_bnd),
+        row("upem_moves", "floria_tpu_torch/csrc/upem_moves.cu",
+            "floria_tpu/kernels/upem_batch.py:259", k4_err, k4_s,
+            k4_plain_s, k4_bnd),
+        row("nw_best", "floria_tpu_torch/csrc/nw_best.cu",
+            "floria_tpu/kernels/realign.py:94", k5_err, k5_s, k5_plain_s,
+            k5_bnd)]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -109,11 +109,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.floria_beam_scan.restype = ctypes.c_int
     lib.floria_beam_scan.argtypes = (
-        [P] * 9          # alleles .. gmix
-        + [P] * 2        # counts, hist scratch
+        [P] * 11         # alleles .. gmix
+        + [P]            # counts scratch
         + [P] * 7        # records, scores, live, assign
-        + [I] * 10       # G R S P A W T1 window dedup rec16
+        + [I] * 9        # G R S P A W T1 dedup rec16
         + [D, P])        # cutoff, stream
+    lib.floria_beam_cluster.restype = ctypes.c_int
+    lib.floria_beam_cluster.argtypes = [I]
     lib.floria_upem_moves.restype = ctypes.c_int
     lib.floria_upem_moves.argtypes = [P] * 7 + [I] * 3 + [P]
     lib.floria_nw_best.restype = ctypes.c_int

@@ -18,8 +18,11 @@ Two implementations, one semantics:
 - `beam_scan_plain`: PyTorch tensor ops, batched over instances, one
   Python step per read. The CPU path and the reference the CUDA kernel
   is held against on the card.
-- `beam_scan_cuda`: csrc/beam_scan.cu (K1), one CTA per instance with the
-  read loop inside the kernel and the traceback in its epilogue.
+- `beam_scan_cuda`: csrc/beam_scan.cu (K1), one CTA (or, for small
+  batches, one thread-block cluster) per instance with the read loop
+  inside the kernel and the traceback in its epilogue. It touches only
+  each step's frontier columns (`frontier_bounds`) and computes the dedup
+  fingerprints from its counts, so it needs no suffix-hash rows.
 `beam_search_batch_mixed` / `beam_search_traceback` pick by the tensors'
 device: CUDA tensors go to the kernel, CPU tensors to the plain version.
 """
@@ -34,9 +37,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from floria_tpu import constants
-
-from .. import state
+from .. import constants, state
 from ..device import check_no_tf32, resolve_device
 from . import _build
 from .scores import binom_tail, log_sum_exp
@@ -126,14 +127,19 @@ def _zrows(alleles, weights, starts, hs) -> torch.Tensor:
                         for h in hs], dim=1).contiguous()
 
 
+def _eps(epsilon):
+    """(f64 epsilon, epsilon in integer weight quanta)."""
+    eps64 = epsilon.to(torch.float64)
+    return eps64, torch.round(eps64 * WEIGHT_SCALE).to(torch.int64)
+
+
 def _prepare(alleles, weights, epsilon, A, P, window, dedup):
-    """Per-read setup shared by both implementations (the reference's
-    `_read_starts`, `_window_offsets`, `_suffix_hash` in wrapping u32
-    emulated in int64)."""
+    """Per-read setup of the plain scan (the reference's `_read_starts`,
+    `_window_offsets`, `_suffix_hash` in wrapping u32 emulated in
+    int64)."""
     G, R, S = alleles.shape
     dev = alleles.device
-    eps64 = epsilon.to(torch.float64)
-    epsq = torch.round(eps64 * WEIGHT_SCALE).to(torch.int64)
+    eps64, epsq = _eps(epsilon)
     covered = alleles >= 0
     offs = _window_offsets(covered, S, window)
     hs, gmix, _phred = state.from_reference(
@@ -301,12 +307,56 @@ def traceback_batch(result: BeamResult) -> torch.Tensor:
     return torch.cat(w_assign + m_assign, dim=1)
 
 
-def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts,
-                   offs, zrows, gmix, *, P: int, W: int, A: int,
-                   window: int, dedup: bool = True
+def frontier_bounds(alleles: torch.Tensor, num_reads: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-read column bounds of K1's frontier, [G, R] int32 each:
+    rstart[r], the read's first covered column (S when it covers none);
+    lo[r], the least rstart of reads r..num_reads-1 (S past them); hi[r],
+    the greatest end (last covered column + 1) of reads 0..r (reads past
+    num_reads count as empty). No read >= r covers a column below lo[r],
+    and no read <= r one at or above hi[r]."""
+    G, R, S = alleles.shape
+    covered = alleles >= 0
+    has = covered.any(dim=-1)
+    first = torch.argmax(covered.to(torch.uint8), dim=-1)
+    last = S - 1 - torch.argmax(covered.flip(-1).to(torch.uint8), dim=-1)
+    real = (torch.arange(R, device=alleles.device)[None, :]
+            < num_reads.long()[:, None]) & has
+    rstart = torch.where(has, first, torch.full_like(first, S))
+    start = torch.where(real, first, torch.full_like(first, S))
+    end = torch.where(real, last + 1, torch.zeros_like(last))
+    lo = torch.flip(torch.cummin(torch.flip(start, [1]), dim=1).values, [1])
+    hi = torch.cummax(end, dim=1).values
+    return (rstart.to(torch.int32).contiguous(),
+            lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous())
+
+
+def _check_windows(alleles, num_reads, window: int) -> None:
+    """K1 scores whole reads. The plain scan with a window < S scores
+    only each read's window columns (the reference's `_window_offsets`);
+    the two agree when every read lies inside its window, which the
+    sweep's window policy guarantees (window >= span + 128 at 128-aligned
+    offsets of sorted reads). Raise otherwise."""
+    G, R, S = alleles.shape
+    covered = alleles >= 0
+    offs = _window_offsets(covered, S, window).long()
+    cols = torch.arange(S, device=alleles.device)
+    inside = (cols >= offs[..., None]) & (cols < offs[..., None] + window)
+    real = (torch.arange(R, device=alleles.device)[None, :]
+            < num_reads.long()[:, None])
+    if bool((covered & ~inside & real[..., None]).any()):
+        raise ValueError(
+            f"beam_scan_cuda: a read extends past its window of {window} "
+            "columns; K1 takes only windows that hold every read")
+
+
+def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts, *,
+                   P: int, W: int, A: int, window: int, dedup: bool = True
                    ) -> Tuple[BeamResult, torch.Tensor]:
     """K1 launch (csrc/beam_scan.cu): BeamResult plus the traceback
-    assignments its epilogue writes. CUDA tensors only."""
+    assignments its epilogue writes. CUDA tensors only; arguments as
+    `beam_scan_plain`'s first six, window already resolved (window >= S
+    means full width)."""
     G, R, S = alleles.shape
     dev = alleles.device
     if dev.type != "cuda":
@@ -316,12 +366,7 @@ def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts,
               "num_reads": (num_reads, torch.int32, (G,)),
               "eps64": (eps64, torch.float64, (G,)),
               "epsq": (epsq, torch.int64, (G,)),
-              "num_parts": (num_parts, torch.int32, (G,)),
-              "offs": (offs, torch.int32, (G, R)),
-              "gmix": (gmix, torch.int64, (state.NUM_FINGERPRINTS, P))}
-    if dedup:
-        expect["zrows"] = (zrows, torch.int64,
-                           (G, state.NUM_FINGERPRINTS, R, R))
+              "num_parts": (num_parts, torch.int32, (G,))}
     for name, (x, dt, shape) in expect.items():
         if x.device != dev or x.dtype != dt or tuple(x.shape) != shape \
                 or not x.is_contiguous():
@@ -330,15 +375,22 @@ def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts,
                 f"{shape} tensor on {dev}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
     B1 = P * W
-    if P > 127 or B1 * P > 4096:
-        raise ValueError(f"beam_scan_cuda: P={P}, W={W} out of range")
+    if P > 127 or B1 * P > 4096 or A not in (2, 3, 4):
+        raise ValueError(f"beam_scan_cuda: P={P}, W={W}, A={A} out of "
+                         "range")
+    if window < S:
+        _check_windows(alleles, num_reads, window)
+    rstart, lo, hi = frontier_bounds(alleles, num_reads)
+    # The u32 constants travel as int32 tensors of the same bits:
+    # hcol [S, F, A] (a column's constants contiguous), gmix [F, P].
+    hs, gs = state.dedup_hash_consts(A, S, P)
+    hcol, gmix = (torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+                  .to(dev) for x in (np.stack(hs).transpose(2, 0, 1),
+                                     np.stack(gs)))
     T1 = min(constants.BEAM_WARMUP_READS, R)
     rec_dt = _rec_dtype(B1)
     Bf = W if R > T1 else B1
-    win = window if window < S else S
-    counts = torch.zeros((G, 2, B1, P, A, S), dtype=torch.int64,
-                         device=dev)
-    hist = torch.full((G, 2, B1, R), -1, dtype=torch.int8, device=dev)
+    counts = torch.empty((G, 2, B1, P, S, A), dtype=torch.int64, device=dev)
     wpar = torch.empty((G, T1, B1), dtype=rec_dt, device=dev)
     wprt = torch.empty_like(wpar)
     mpar = torch.empty((G, R - T1, W), dtype=rec_dt, device=dev)
@@ -350,15 +402,20 @@ def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts,
     ptr = ctypes.c_void_p
     rc = lib.floria_beam_scan(
         *(ptr(x.data_ptr()) for x in (
-            alleles, weights, num_reads, eps64, epsq, num_parts, offs,
-            zrows, gmix, counts, hist, wpar, wprt, mpar, mprt, scores,
-            live, assign)),
-        G, R, S, P, A, W, T1, win, int(bool(dedup)),
-        int(rec_dt == torch.int16), CUTOFF,
-        ptr(torch.cuda.current_stream(dev).cuda_stream))
+            alleles, weights, num_reads, eps64, epsq, num_parts, rstart, lo,
+            hi, hcol, gmix, counts, wpar, wprt, mpar, mprt, scores, live,
+            assign)),
+        G, R, S, P, A, W, T1, int(bool(dedup)), int(rec_dt == torch.int16),
+        CUTOFF, ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(rc, "beam_scan")
     _build.LAUNCHES["beam_scan"] += 1
     return BeamResult(wpar, wprt, mpar, mprt, scores, live.bool()), assign
+
+
+def cluster_width(G: int) -> int:
+    """CTAs per instance K1 launches for a batch of G instances (1 when
+    G fills the card)."""
+    return int(_build.get_lib().floria_beam_cluster(G))
 
 
 def _inputs(alleles, weights, num_reads, epsilon, num_parts, device):
@@ -389,15 +446,15 @@ def beam_search_traceback(alleles, weights, num_reads, epsilon, num_parts,
     S = alleles.shape[-1]
     if window <= 0 or window >= S:
         window = S
-    eps64, epsq, offs, zrows, gmix = _prepare(
-        alleles, weights, epsilon, max_alleles, max_ploidy, window, dedup)
-    args = (alleles, weights, num_reads, eps64, epsq, num_parts, offs,
-            zrows, gmix)
     kw = dict(P=max_ploidy, W=beam_width, A=max_alleles, window=window,
               dedup=dedup)
     if alleles.device.type == "cuda":
-        return beam_scan_cuda(*args, **kw)
-    result = beam_scan_plain(*args, **kw)
+        return beam_scan_cuda(alleles, weights, num_reads, *_eps(epsilon),
+                              num_parts, **kw)
+    eps64, epsq, offs, zrows, gmix = _prepare(
+        alleles, weights, epsilon, max_alleles, max_ploidy, window, dedup)
+    result = beam_scan_plain(alleles, weights, num_reads, eps64, epsq,
+                             num_parts, offs, zrows, gmix, **kw)
     return result, traceback_batch(result)
 
 

@@ -35,12 +35,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from floria_tpu import native
-from floria_tpu.frag import Frag
-from floria_tpu.ingest.vcf import ContigVcf
-
-from .. import timing
+from .. import native, timing
 from ..device import resolve_device
+from ..frag import Frag
+from ..ingest.vcf import ContigVcf
 from . import _build
 
 FLANK = 16
@@ -326,9 +324,6 @@ def flush_pool(pool: RealignPool, *, device) -> None:
     var_packed = np.ascontiguousarray(
         (var[:, :, 0::2] | (var[:, :, 1::2] << 4)).astype(np.uint8))
     best = native.realign_exact(q, si, nal, var_packed)
-    if best is None:
-        raise RuntimeError("native realignment library unavailable "
-                           "(floria_tpu.native.get_lib() failed)")
     # Jobs the Hamming precheck could not prove go to the NW; reads
     # with identical windows at one SNP are one problem, solved once.
     rest = np.nonzero(best < 0)[0]

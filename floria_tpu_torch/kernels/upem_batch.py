@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from floria_tpu import constants
+from .. import constants
 
 from ..device import check_no_tf32, resolve_device
 from . import _build

@@ -24,17 +24,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from floria_tpu import constants
-from floria_tpu.kernels.blocktensor import BlockTensor, pack_block, round_up
-from floria_tpu.options import Options
-from floria_tpu.phase.blocks import (find_reads_in_interval,
-                                     get_range_with_lengths,
-                                     interval_bounds)
-
-from .. import state, timing
+from .. import constants, state, timing
 from ..device import check_no_tf32, resolve_device
 from ..kernels import beam as beam_kernel
+from ..kernels.blocktensor import BlockTensor, pack_block, round_up
 from ..kernels.upem_batch import _eval_mec, upem_optimize_device
+from ..options import Options
+from .blocks import (find_reads_in_interval, get_range_with_lengths,
+                     interval_bounds)
 
 log = logging.getLogger("floria_tpu")
 

@@ -7,8 +7,8 @@ on the device -> hap-graph -> LP flow -> widest paths -> final
 assignment -> SNP-less gap reads -> outputs.
 Contigs run in groups: realignment jobs and SNP-block instances of a
 whole group share one flush and one set of device batches. Every host
-stage is floria_tpu's, imported unchanged; only the phasing dispatch and
-the realigner are the port's.
+stage is the port's copy of floria_tpu's, unchanged; the phasing dispatch
+and the realigner run on torch.
 """
 
 from __future__ import annotations
@@ -21,26 +21,23 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from floria_tpu import fragops, threads
-from floria_tpu.frag import Frag, sort_and_renumber
-from floria_tpu.graph.edges import update_hap_graph
-from floria_tpu.graph.flow import solve_lp_graph
-from floria_tpu.graph.hapnode import FragCsr, HapNode, assign_ids, \
-    build_hap_node
-from floria_tpu.graph.paths import get_disjoint_paths
-from floria_tpu.ingest import bam as bamlib
-from floria_tpu.ingest.fasta import FastaFile
-from floria_tpu.ingest.vcf import VcfProfile, read_vcf
-from floria_tpu.options import Options
-from floria_tpu.out.writers import write_outputs
-from floria_tpu.post.finalize import process_reads_for_final_parts
-from floria_tpu.post.snpless import frags_in_snpless_gaps
-
-from . import timing
+from . import fragops, threads, timing
 from .device import resolve_device
+from .frag import Frag, sort_and_renumber
+from .graph.edges import update_hap_graph
+from .graph.flow import solve_lp_graph
+from .graph.hapnode import FragCsr, HapNode, assign_ids, build_hap_node
+from .graph.paths import get_disjoint_paths
+from .ingest import bam as bamlib
+from .ingest.fasta import FastaFile
+from .ingest.vcf import VcfProfile, read_vcf
 from .ingest.fragments import collect_contig_records, finalize_frags
 from .kernels.realign import RealignPool, flush_pool
+from .options import Options
+from .out.writers import write_outputs
 from .phase.local import LocalBlockResult, phase_contigs_blocks
+from .post.finalize import process_reads_for_final_parts
+from .post.snpless import frags_in_snpless_gaps
 
 log = logging.getLogger("floria_tpu")
 
@@ -49,7 +46,7 @@ def open_bam(path: str, restrict=None):
     """Native-accelerated BAM when the C++ runtime is available, pure
     Python otherwise."""
     try:
-        from floria_tpu.ingest.fastingest import FastBam
+        from .ingest.fastingest import FastBam
         return FastBam(path, restrict=restrict)
     except Exception as e:
         log.debug("native BAM path unavailable (%s); using pure decoder",
@@ -320,11 +317,11 @@ def _finish_contig(st: _ContigState, results: List[LocalBlockResult],
     haplogroups = get_disjoint_paths(hap_graph, flow_vec)
     timing.add("join.paths", time.time() - paths_t)
     if log.isEnabledFor(logging.DEBUG):
-        from floria_tpu.graph.paths import write_pet_graph_dot
+        from .graph.paths import write_pet_graph_dot
         write_pet_graph_dot(hap_graph,
                             os.path.join(st.out_dir, "pet_graph.dot"))
     if options.do_binning:
-        from floria_tpu.post.binning import bin_haplogroups
+        from .post.binning import bin_haplogroups
         haplogroups = bin_haplogroups(
             haplogroups, st.cv, options.block_length,
             debug_path=os.path.join(st.out_dir, "debug_clusters.txt"))

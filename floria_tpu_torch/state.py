@@ -4,7 +4,7 @@ The system has no weights; what the beam scan needs besides its inputs
 is two constant tables, reproduced here bit-for-bit:
 
 - the phred -> weight table (the exact float32 expression
-  floria_tpu.frag.phred_weight uses, so device-reconstructed weights equal
+  frag.phred_weight uses, so device-reconstructed weights equal
   host weights);
 - the dedup fingerprint constants, drawn from the same seeded numpy
   stream as floria_tpu/kernels/beam.py `_hash_consts_np`.
@@ -17,7 +17,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from floria_tpu.frag import phred_weight
+from .frag import phred_weight
 
 NUM_FINGERPRINTS = 2
 HASH_SEED = 0xF10E1A

@@ -1,8 +1,20 @@
-"""Per-stage wall-time accumulator, shared with the reference.
+"""Per-stage wall-time accumulator for the pipeline.
 
-floria_tpu/timing.py is host-only; the port's pipeline adds its stage
-spans to the same process-global dict, re-exported here for callers of
-the port. `pipeline.run()` resets it at entry.
+The reference logs stage spans ad hoc (floria.rs:204-206, 319-342);
+here the same spans are additionally accumulated in a process-global
+dict so tooling (bench.py) can report an end-to-end breakdown without
+scraping logs. `run()` resets it at entry; values are cumulative
+seconds across contig groups within one run.
 """
 
-from floria_tpu.timing import STAGE_TIMES, add, reset  # noqa: F401
+from typing import Dict
+
+STAGE_TIMES: Dict[str, float] = {}
+
+
+def reset() -> None:
+    STAGE_TIMES.clear()
+
+
+def add(stage: str, seconds: float) -> None:
+    STAGE_TIMES[stage] = STAGE_TIMES.get(stage, 0.0) + seconds

@@ -14,6 +14,7 @@ from floria_tpu.kernels import beam as B
 from floria_tpu.kernels.beam_pallas import beam_search_batch_pallas
 from floria_tpu.kernels.blocktensor import pack_block
 from floria_tpu.kernels.scores import binom_tail_jnp, log_sum_exp_jnp
+from floria_tpu_torch import constants, state
 from floria_tpu_torch.kernels import beam as TB
 from floria_tpu_torch.kernels.scores import binom_tail, log_sum_exp
 from test_beam_pallas import _make
@@ -25,6 +26,7 @@ from test_windowed_beam import _long_block
 # One intra-op thread: the suite runs several pytest workers on one
 # host, and oversubscribed OpenMP threads slow every worker down.
 torch.set_num_threads(1)
+MASK = 0xFFFFFFFF
 
 PALLAS_CASES = [
     (3, 40, 64, 3, 10, 0, (3, 2, 3)),
@@ -184,6 +186,131 @@ def test_prune_values_match_at_rtol_and_decisions_bitwise():
     cutoff = TB.CUTOFF
     np.testing.assert_array_equal((jb - jl[:, None]) > cutoff,
                                   (tb - tl[:, None]) > cutoff)
+
+
+def _dedup_block():
+    """test_beam_dedup_case_matches_jax_and_oracle's block, as arrays."""
+    rng = np.random.default_rng(0)
+    frags = [_mk_frag(0, {1: (0, 30), 2: (1, 30), 3: (0, 30)})]
+    strains = rng.integers(0, 2, (3, 60))
+    for i in range(1, 40):
+        k = rng.integers(0, 3)
+        start = int(rng.integers(30, 45))
+        frags.append(_mk_frag(i, {
+            snp: (int(strains[k, snp - 1]), int(rng.integers(10, 40)))
+            for snp in range(start, start + 12)}))
+    frags.sort(key=Frag.sort_key)
+    bt = pack_block(frags, (1, 60))
+    return (bt.alleles[None], bt.weights[None],
+            np.array([bt.num_reads], np.int32),
+            np.array([0.03], np.float32), np.array([3], np.int32))
+
+
+def _long_reads_block():
+    """R > 2048: test_beam_long_block_matches_hist_f64_fallback's shape."""
+    G, R, S = 1, 2100, 48
+    rng = np.random.default_rng(5)
+    alleles = np.full((G, R, S), -1, np.int8)
+    weights = np.zeros((G, R, S), np.float32)
+    starts = np.sort(rng.integers(0, S - 6, R))
+    for r in range(R):
+        alleles[0, r, starts[r]:starts[r] + 6] = rng.integers(0, 2, 6)
+        weights[0, r, starts[r]:starts[r] + 6] = 1.0 - 10.0 ** (
+            rng.integers(10, 40, 6) / -10.0)
+    return (alleles, weights, np.array([R - 3], np.int32),
+            np.full(G, 0.02, np.float32), np.array([2], np.int32))
+
+
+def _frontier_case(name):
+    """(alleles, weights, nreads, eps, nparts, P, W, A, window)."""
+    if name == "windowed":
+        al, wt, nr, ep = _long_block()
+        return al, wt, nr, ep, np.full(len(nr), 2, np.int32), 2, 6, 2, 256
+    if name == "unwindowed":
+        return (*_pallas_inputs(*PALLAS_CASES[2][:4], 2, (5, 4)), 5, 10, 2,
+                0)
+    if name == "dedup":
+        return (*_dedup_block(), 3, 10, 4, 0)
+    return (*_long_reads_block(), 2, 3, 2, 0)
+
+
+def _chains(result, g, t, T1):
+    """[outs, t + 1] part of reads 0..t along each slot's parent chain
+    after step t, from the plain scan's records."""
+    wp, wt, mp, mt = (x[g].numpy().astype(np.int64) for x in result[:4])
+
+    def rec(r):
+        return (wp[r], wt[r]) if r < T1 else (mp[r - T1], mt[r - T1])
+
+    b = np.arange(len(rec(t)[0]))
+    out = np.zeros((len(b), t + 1), np.int64)
+    for r in range(t, -1, -1):
+        par_r, prt_r = rec(r)
+        out[:, r] = prt_r[b]
+        b = par_r[b]
+    return out
+
+
+@pytest.mark.parametrize("case", ["windowed", "unwindowed", "dedup",
+                                  "r2100"])
+def test_frontier_bounds_hold_every_read_and_the_state(case):
+    """K1's frontier bounds against a brute-force scan of the alleles:
+    every column a read >= t covers lies at or above lo[t], every column
+    a read <= t covers lies below hi[t], and in the plain scan's state
+    after step t every count at or above hi[t] is zero. The same states
+    check the identity K1's dedup rests on: a slot's fingerprint from the
+    suffix-hash rows equals the one from its counts (sum over columns
+    >= the next read's start of counts * H, mod 2^32)."""
+    al, wt, nr, ep, npt, P, W, A, window = _frontier_case(case)
+    G, R, S = al.shape
+    rstart, lo, hi = (x.numpy() for x in TB.frontier_bounds(
+        torch.from_numpy(al), torch.from_numpy(nr)))
+    cov = al >= 0
+    for g in range(G):
+        for r in range(R):
+            cols = np.flatnonzero(cov[g, r])
+            assert rstart[g, r] == (cols[0] if len(cols) else S)
+        for t in range(nr[g]):
+            later = cov[g, t:nr[g]].any(axis=0)
+            upto = cov[g, :t + 1].any(axis=0)
+            assert not later[:lo[g, t]].any()
+            assert not upto[hi[g, t]:].any()
+            assert lo[g, t] == (np.flatnonzero(later)[0] if later.any()
+                                else S)
+            assert hi[g, t] == (np.flatnonzero(upto)[-1] + 1
+                                if upto.any() else 0)
+    if window:
+        TB._check_windows(torch.from_numpy(al), torch.from_numpy(nr),
+                          window)
+
+    result, _asg = TB.beam_search_traceback(al, wt, nr, ep, npt, P, W,
+                                            max_alleles=A, window=window,
+                                            device="cpu")
+    T1 = min(constants.BEAM_WARMUP_READS, R)
+    wq = (torch.from_numpy(wt) * np.float32(TB.WEIGHT_SCALE)).to(
+        torch.int64).numpy()
+    hs, _gs = state.dedup_hash_consts(A, S, P)
+    zrows = TB._zrows(torch.from_numpy(al), torch.from_numpy(wt),
+                      torch.from_numpy(rstart), [
+                          torch.from_numpy(h.astype(np.int64)) for h in hs
+                      ]).numpy()
+    onehot = (al[..., None] == np.arange(A)).astype(np.int64)  # [G,R,S,A]
+    for g in range(G):
+        steps = sorted({0, 1, T1 - 1, T1, nr[g] // 2, nr[g] - 2})
+        for t in (t for t in steps if 0 <= t < nr[g] - 1):
+            ch = _chains(result, g, t, T1)
+            for o in range(len(ch)):
+                for q in range(P):
+                    rows = np.flatnonzero(ch[o] == q)
+                    c = np.einsum("rs,rsa->sa", wq[g, rows],
+                                  onehot[g, rows])
+                    assert not c[hi[g, t]:].any()
+                    for f in range(len(hs)):
+                        s0 = rstart[g, t + 1]
+                        want = int(zrows[g, f, t + 1, rows].sum()) & MASK
+                        got = int((c[s0:] * hs[f].T.astype(np.int64)[s0:]
+                                   & MASK).sum()) & MASK
+                        assert got == want, (g, t, o, q, f)
 
 
 def test_cuda_tensor_without_card_raises():

@@ -30,17 +30,17 @@ def dev():
 
 
 def _kernel_vs_plain(dev, alleles, weights, nreads, eps, nparts, P, W,
-                     A=2, window=0):
+                     A=2, window=0, dedup=True):
     """(kernel result, kernel assignments, plain result, plain
     assignments), all on `dev`."""
     al, wt, nr, ep, npt = TB._inputs(alleles, weights, nreads, eps,
                                      nparts, dev)
     S = al.shape[-1]
     window = S if window <= 0 or window >= S else window
-    prep = TB._prepare(al, wt, ep, A, P, window, True)
+    prep = TB._prepare(al, wt, ep, A, P, window, dedup)
     args = (al, wt, nr, *prep[:2], npt, *prep[2:])
-    kw = dict(P=P, W=W, A=A, window=window, dedup=True)
-    got, asg = TB.beam_scan_cuda(*args, **kw)
+    kw = dict(P=P, W=W, A=A, window=window, dedup=dedup)
+    got, asg = TB.beam_scan_cuda(*args[:6], **kw)
     ref = TB.beam_scan_plain(*args, **kw)
     torch.cuda.synchronize()
     return got, asg, ref, TB.traceback_batch(ref)
@@ -69,9 +69,37 @@ def _random_case(G, R, S, P, seed, nparts, A=2):
     (1, 2100, 48, 2, 3, 6, (2,), 2),         # R > 2048
 ])
 def test_beam_kernel_matches_plain(dev, G, R, S, P, W, seed, nparts, A):
+    # G < 66: every case runs K1's thread-block-cluster path.
+    assert TB.cluster_width(G) > 1
     got, asg, ref, ref_asg = _kernel_vs_plain(
         dev, *_random_case(G, R, S, P, seed, nparts, A), P, W, A=A)
     _assert_same(got, asg, ref, ref_asg)
+
+
+@pytest.mark.parametrize("G,A,width", [(70, 2, 1), (40, 4, 2), (20, 3, 4)])
+def test_beam_kernel_cluster_widths_match_plain(dev, G, A, width):
+    """G = 70 fills the card with one CTA per instance (no cluster);
+    G = 40 and 20 take clusters of two and four. Mixed parts, padded
+    reads, two to four alleles."""
+    nparts = [2 + g % 4 for g in range(G)]
+    assert TB.cluster_width(G) == width
+    got, asg, ref, ref_asg = _kernel_vs_plain(
+        dev, *_random_case(G, 48, 256, 5, 7 + G, nparts, A), 5, 10, A=A)
+    _assert_same(got, asg, ref, ref_asg)
+
+
+@pytest.mark.parametrize("G", [3, 70])
+def test_beam_kernel_without_dedup_matches_plain(dev, G):
+    got, asg, ref, ref_asg = _kernel_vs_plain(
+        dev, *_random_case(G, 40, 64, 3, G, [3 - g % 2 for g in range(G)]),
+        3, 10, dedup=False)
+    _assert_same(got, asg, ref, ref_asg)
+
+
+def test_beam_kernel_rejects_a_window_that_cuts_a_read(dev):
+    *inp, P = windowed_case(G=2, R=80, S=1024, span=120)
+    with pytest.raises(ValueError, match="window"):
+        _kernel_vs_plain(dev, *inp, P, 10, window=128)
 
 
 def test_beam_kernel_windowed_matches_plain_and_full(dev):

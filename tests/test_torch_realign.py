@@ -1,8 +1,9 @@
 """The port's realignment (floria_tpu_torch/kernels/realign.py) against
 the JAX package on the CPU: the plain NW bitwise against `_nw_scores`,
-`_nw_best_chunked` and the native C++ Gotoh, the partition route of
-`flush_pool`, and the CLI with the device route forced on. Every
-comparison is exact: NW scores are integers.
+`_nw_best_chunked` and the native C++ Gotoh (through the port's own
+bridge, `floria_tpu_torch.native`), the partition route of `flush_pool`,
+and the CLI with the device route forced on. Every comparison is exact:
+NW scores are integers.
 
 K5 (csrc/nw_best.cu) itself is held against the plain version on a card
 by tests/test_torch_cuda.py and chip_smoke.py.
@@ -20,12 +21,14 @@ import torch
 import floria_tpu.kernels.realign as R
 from chip_smoke import nw_case
 from floria_tpu import cli as jax_cli
-from floria_tpu import native
 from floria_tpu.frag import Frag
 from floria_tpu.ingest.vcf import ContigVcf
-from floria_tpu.sim.simulate import SimConfig, simulate
 from floria_tpu_torch import cli as torch_cli
+from floria_tpu_torch import frag as torch_frag
+from floria_tpu_torch import native as torch_native
+from floria_tpu_torch.ingest import vcf as torch_vcf
 from floria_tpu_torch.kernels import realign as TR
+from floria_tpu_torch.sim.simulate import SimConfig, simulate
 
 # One intra-op thread: the suite runs several pytest workers on one
 # host, and oversubscribed OpenMP threads slow every worker down.
@@ -99,7 +102,7 @@ def test_nw_best_plain_matches_jax_and_cpp(A, a_max):
     assert got.dtype == torch.int8
     want = _jax_best(q_packed, si, ref_tab, al_tab, nal_tab, a_max)
     assert np.array_equal(got.numpy(), want)
-    cpp = native.nw_batch(q_packed, si, nal, ref_tab, al_tab)
+    cpp = torch_native.nw_batch(q_packed, si, nal, ref_tab, al_tab)
     assert np.array_equal(got.numpy(), cpp)
     # The wrapper takes the plain version for CPU tensors.
     assert torch.equal(TR.nw_best(*t, a_max), got)
@@ -116,9 +119,10 @@ def test_nw_best_plain_matches_jax_and_cpp(A, a_max):
         assert torch.equal(sc[:, a], col)
 
 
-def _route_community(seed=3, length=6000, n_reads=70, read_len=700):
-    """(ref bytes, ContigVcf with some 3- and 4-allele sites, frags
-    with indel-rich reads) made from `seed`: most windows need the NW."""
+def _route_community(seed=3, length=6000, n_reads=70, read_len=700,
+                     vcf_cls=ContigVcf):
+    """(ref bytes, `vcf_cls` table with some 3- and 4-allele sites,
+    indel-rich reads) made from `seed`: most windows need the NW."""
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
     ref = bases[rng.integers(0, 4, length)]
@@ -130,8 +134,8 @@ def _route_community(seed=3, length=6000, n_reads=70, read_len=700):
         alts = rng.permutation(others)[:n_alt]
         pos_allele_map[int(p)] = bytes([ref[p], *alts])
         pos_to_snp[int(p)] = k + 1
-    cv = ContigVcf(genome_pos=pos.astype(np.int64),
-                   pos_allele_map=pos_allele_map, pos_to_snp=pos_to_snp)
+    cv = vcf_cls(genome_pos=pos.astype(np.int64),
+                 pos_allele_map=pos_allele_map, pos_to_snp=pos_to_snp)
     reads = []
     for r in range(n_reads):
         s = int(rng.integers(0, length - read_len))
@@ -149,10 +153,10 @@ def _route_community(seed=3, length=6000, n_reads=70, read_len=700):
     return ref.tobytes(), cv, reads
 
 
-def _route_frags(cv, reads):
+def _route_frags(cv, reads, frag_cls=Frag):
     frags = []
     for counter, (name, seq, where) in enumerate(reads):
-        f = Frag(name, counter, False)
+        f = frag_cls(name, counter, False)
         f.seq_string[0] = seq
         for g, k in cv.pos_to_snp.items():
             if g in where:
@@ -177,12 +181,15 @@ def test_flush_pool_routes_partitions_as_the_reference(monkeypatch):
             return fn(*args)
         return wrapped
 
+    assert TR.native is torch_native
     monkeypatch.setattr(TR, "nw_best", counted("nw_best", TR.nw_best))
-    monkeypatch.setattr(TR.native, "nw_batch",
-                        counted("cpp", TR.native.nw_batch))
+    monkeypatch.setattr(torch_native, "nw_batch",
+                        counted("cpp", torch_native.nw_batch))
     monkeypatch.setattr(TR, "CPP_MAX_JOBS", 150)
-    got = _route_frags(cv, reads)
-    realigner = TR.SnpRealigner(ref, cv, TR.RealignPool())
+    # The port's run on the port's own frag and VCF classes.
+    _ref, cv_t, _reads = _route_community(vcf_cls=torch_vcf.ContigVcf)
+    got = _route_frags(cv_t, reads, torch_frag.Frag)
+    realigner = TR.SnpRealigner(ref, cv_t, TR.RealignPool())
     for f in got:
         realigner.realign(f)
     realigner.flush("cpu")
