@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (floria_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab-inputs PATH]
 
 It imports the standard library, numpy, torch and the port; nothing of
 jax or of the JAX package `floria_tpu`, and it fails if either is loaded
@@ -9,21 +9,28 @@ each; any failure raises (exit code != 0):
   1. device   - the card's name and power limit (nvidia-smi), torch/CUDA;
   2. build    - nvcc builds the kernels from floria_tpu_torch/csrc/ while
                 g++ builds the port's copy of the native C++ library
-                from native/ (floria_tpu_torch/native.py);
-  3. kernels  - K1 (beam scan) and K4 (UPEM move walk) against their plain
-                PyTorch versions, bitwise, at G=8 R=320 S=2048 (mixed
-                ploidies 2..5, K1 in clusters of 8 CTAs; K1 also against
-                the plain scan on the CPU), timed, plus a windowed and a
-                dedup case;
+                from native/ (floria_tpu_torch/native.py); ptxas's
+                registers and spills per kernel;
+  3. kernels  - K1 (beam scan) against its plain PyTorch version, bitwise,
+                at G=8 R=320 S=2048 (mixed ploidies 2..5, K1 in clusters
+                of 8 CTAs; K1 also against the plain scan on the CPU),
+                timed, plus a windowed and a dedup case; K4 (the whole
+                UPEM move function, (assign, diff, num_reads) ->
+                proposal) against its plain version on the sweep's first
+                UPEM iteration, timed;
   4. e2e      - the port's CLI on bench.py's `ecoli2` community (1 Mbp,
                 2 strains, 50k SNPs, 50x per strain): a first run (its
-                kernel launch counts), a second run (its K1 dispatches
-                and K5 partitions recorded), a third run under
+                kernel launch counts), a second run (its K1 dispatches,
+                K5 partitions and K4 calls recorded), a third run under
                 torch.profiler (the card's busy share) and a `--device
                 cpu` run; all four must write the same bytes;
   5. dispatch - K1 and K4 against their plain versions on the card at the
                 main path's own largest beam dispatch, recorded in phase
-                4, and on its blocks at the next ploidy, timed;
+                4, and on its blocks at the next ploidy, timed; K4 also at
+                the later UPEM iterations that apply moves (the main
+                path's, and those of UPEM loops on the next-ploidy
+                dispatch and on phase 3's sweep), the one that moves the
+                most reads timed;
   6. realign  - K5 (the realignment NW) against its plain version on the
                 card (best alleles and scores) and against the native C++
                 Gotoh on the host, bitwise, at the main path's own
@@ -31,13 +38,19 @@ each; any failure raises (exit code != 0):
                 windows at 4 alleles;
   7. parity   - the port's CLI on the `long3` community must write the
                 oracle pipeline's bytes (tests/data/long3_oracle.json);
-  8. summary  - K1's times at the `ecoli2` dispatch (P=2, P=3) and on the
-                sweep beside their bounds and the `ecoli2` launch counts;
-                the run fails if any jax or `floria_tpu` module is loaded.
-Times are medians of 3 after one warm run, CUDA-synchronized; every
-record that holds a time carries the card's name and power limit
-(`card`). Each kernel's bound is computed from this run's inputs: the
-larger of the bytes the function must move (each input read once, each
+  8. summary  - K1's and K4's times at the `ecoli2` dispatch (P=2, P=3)
+                and on the sweep, and K4's at the timed later iteration,
+                beside their bounds and the `ecoli2` launch counts; the
+                run fails if any jax or `floria_tpu` module is loaded.
+With --ab-inputs it also saves the inputs of every timed K4 and K5 case,
+for scripts/torch_kernel_parent_ab.py to time an earlier tree's calls on
+them.
+Times are medians of 3 (K4: 20) after one warm run of the whole call,
+wrapper included, CUDA-synchronized (`kernel_ms`, the kernel line's
+`ms`); beside them `kernel_device_ms` is the kernel alone on the card,
+from torch.profiler's CUDA activity. Every record that holds a time
+carries the card's name and power limit (`card`). Each kernel's bound
+is computed from this run's inputs: the larger of the bytes the function must move (each input read once, each
 output written once) over 3.35 TB/s and its operations over 67 T/s (the
 H100 SXM's HBM rate and its f32 rate outside the tensor cores, NVIDIA's
 data sheet; integer operations are counted at that rate, which makes the
@@ -48,6 +61,7 @@ the nvidia-smi line and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import argparse
 import filecmp
 import hashlib
 import json
@@ -140,12 +154,13 @@ def k1_bound(al, nr, npt, P, W):
     return bound(nbytes, 2 * int((ncov * npt.long()).sum()))
 
 
-def k4_bound(assign, order, n_valid, sizes0):
-    """K4's bound: its inputs read and its assignment written once, a
-    few operations per candidate move walked."""
-    nbytes = (assign.numel() * 4 * 2 + order.numel() * 8
-              + n_valid.numel() * 8 + sizes0.numel() * 4)
-    return bound(nbytes, 4 * int(n_valid.sum()))
+def k4_bound(assign, diff, num_reads):
+    """K4's bound over the whole move function: `diff`, `assign` and
+    `num_reads` read once and the proposal written once; per candidate
+    move (r, j) one subtraction and one comparison."""
+    nbytes = (diff.numel() * 8 + assign.numel() * 4 * 2
+              + num_reads.numel() * 4)
+    return bound(nbytes, 2 * diff.numel())
 
 
 def k5_bound(q, si, nal, ref_tab, al_tab, a_max):
@@ -178,6 +193,25 @@ def timed(fn, reps=3):
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts))
+
+
+def kernel_device_ms(fn, kernel: str, reps=10):
+    """Device time per call of `fn` of the CUDA kernels whose name holds
+    `kernel`, from torch.profiler's CUDA activity over `reps` calls after
+    one warm call: the kernel alone, without the wrapper's host work or
+    the launch. None when the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(spans) / reps * 1e-3 if spans else None
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -320,11 +354,13 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
         err = max(err, _assert_beam_equal(
             label + " (plain on the CPU)", ref, tb.traceback_batch(ref),
             type(got)(*(x.cpu() for x in got)), asg.cpu()))
-    k_s = p_s = None
+    k_s = p_s = dev_ms = None
     if timing:
         k_s = timed(lambda: tb.beam_scan_cuda(*args[:6], **kw))
         p_s = timed(lambda: tb.traceback_batch(
             tb.beam_scan_plain(*args, **kw)))
+        dev_ms = kernel_device_ms(lambda: tb.beam_scan_cuda(*args[:6], **kw),
+                                  "beam_scan_kernel", reps=3)
     bnd = k1_bound(al, nr, npt, P, W)
     emit({"phase": "kernels", "kernel": "beam_scan", "case": label,
           "G": int(al.shape[0]), "R": int(al.shape[1]), "S": int(S),
@@ -335,37 +371,143 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
           "cpu_plain_bitwise_equal": cpu_ref or None,
           "cpu_plain_s": cpu_s,
           "kernel_ms": None if k_s is None else k_s * 1e3,
+          "kernel_device_ms": dev_ms,
           "plain_ms": None if p_s is None else p_s * 1e3,
           "bound_ms": bnd[0], "bound_by": bnd[1]})
     return err, k_s, p_s, (al, wt, nr, ep, asg), bnd
 
 
-def check_moves(al, wt, nr, ep, asg, P, A=2, label=""):
-    """K4 against the host walk on the first UPEM iteration's inputs
-    (the beam's assignments); timed. Returns (max_abs_err, kernel_s,
-    plain_s, (bound_ms, bound_by))."""
+# The inputs of every timed K4 and K5 case, by kernel and label, kept for
+# --ab-inputs.
+AB_CASES = {"upem_moves": {}, "nw_best": {}}
+
+
+def check_moves(assign, diff, nr, P, label="", timing=True):
+    """K4, the whole move function (assign, diff, num_reads) -> proposal,
+    against its plain version (the candidates and their stable sort in
+    torch, the walk on the host) on the same card, bitwise; timed.
+    Returns (max_abs_err, kernel_s, plain_s, (bound_ms, bound_by))."""
     from floria_tpu_torch.kernels import upem_batch as tu
 
-    assign = asg.to(torch.int32).contiguous()
-    diff, _score = tu._eval_diff_score(al, wt, assign, ep, P, A)
-    sizes0, order, n_valid = tu._move_candidates(assign, diff, nr)
-    got = tu.apply_moves_cuda(assign, order, n_valid, sizes0)
-    ref = tu.apply_moves_plain(assign, order, n_valid, sizes0)
+    assign = assign.to(torch.int32).contiguous()
+    diff = diff.contiguous()
+    nr = nr.to(torch.int32).contiguous()
+    got = tu.apply_moves_cuda(assign, diff, nr)
+    ref = tu.apply_moves_plain(assign, diff, nr)
     err = max_abs_diff(ref, got)
     if err != 0.0 or not torch.equal(got, ref):
         raise AssertionError(f"K4 {label} differs from the plain move "
-                             f"walk (max abs {err})")
-    k_s = timed(lambda: tu.apply_moves_cuda(assign, order, n_valid,
-                                            sizes0))
-    p_s = timed(lambda: tu.apply_moves_plain(assign, order, n_valid,
-                                             sizes0))
-    bnd = k4_bound(assign, order, n_valid, sizes0)
+                             f"function (max abs {err})")
+    n_valid = tu._move_candidates(assign, diff, nr)[2]
+    k_s = p_s = dev_ms = None
+    if timing:
+        # A call is tens of us of host work: 20 runs steady the median.
+        k_s = timed(lambda: tu.apply_moves_cuda(assign, diff, nr), reps=20)
+        p_s = timed(lambda: tu.apply_moves_plain(assign, diff, nr),
+                    reps=20)
+        dev_ms = kernel_device_ms(
+            lambda: tu.apply_moves_cuda(assign, diff, nr),
+            "upem_moves_kernel")
+        AB_CASES["upem_moves"][label] = tuple(x.cpu()
+                                              for x in (assign, diff, nr))
+    bnd = k4_bound(assign, diff, nr)
+    G, R = assign.shape
     emit({"phase": "kernels", "kernel": "upem_moves", "case": label,
-          "G": int(assign.shape[0]), "R": int(assign.shape[1]), "P": P,
+          "G": G, "R": R, "P": P,
+          "shared_memory": tu.moves_in_shared(R, P, assign.device),
+          "n_valid": int(n_valid.sum()), "n_valid_max": int(n_valid.max()),
           "moves_applied": int((got != assign).sum()),
-          "bitwise_equal": True, "kernel_ms": k_s * 1e3,
-          "plain_ms": p_s * 1e3, "bound_ms": bnd[0], "bound_by": bnd[1]})
+          "bitwise_equal": True,
+          "kernel_ms": None if k_s is None else k_s * 1e3,
+          "kernel_device_ms": dev_ms,
+          "plain_ms": None if p_s is None else p_s * 1e3,
+          "bound_ms": bnd[0], "bound_by": bnd[1]})
     return err, k_s, p_s, bnd
+
+
+def check_first_moves(ups, P, A=2, label=""):
+    """K4 on the first UPEM iteration's input: the beam's assignments,
+    with `ups` = check_beam's (alleles, weights, num_reads, eps,
+    assign)."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    al, wt, nr, ep, asg = ups
+    assign = asg.to(torch.int32).contiguous()
+    diff, _score = tu._eval_diff_score(al, wt, assign, ep, P, A)
+    return check_moves(assign, diff, nr, P, label=label)
+
+
+class MovesRecorder:
+    """Keeps the inputs and outputs of every move-function call (K4) of
+    the UPEM loops run while active, with each call's iteration index in
+    its loop."""
+
+    def __init__(self):
+        from floria_tpu_torch.kernels import upem_batch
+        from floria_tpu_torch.phase import local
+
+        self.module, self.local = upem_batch, local
+        self.calls = []
+        self._it = 0
+
+    def __enter__(self):
+        self._apply, self._upem = self.module.apply_moves, \
+            self.local.upem_optimize_device
+
+        def apply_moves(assign, diff, num_reads):
+            out = self._apply(assign, diff, num_reads)
+            self.calls.append((self._it, assign, diff, num_reads, out))
+            self._it += 1
+            return out
+
+        def upem(*args, **kw):
+            self._it = 0
+            return self._upem(*args, **kw)
+
+        self.module.apply_moves = apply_moves
+        self.local.upem_optimize_device = upem
+        return self
+
+    def __exit__(self, *exc):
+        self.module.apply_moves = self._apply
+        self.local.upem_optimize_device = self._upem
+
+    def later_with_moves(self, label):
+        """The calls past a loop's first iteration that applied moves, as
+        (label iteration k, (assign, diff, num_reads, proposal))."""
+        return [(f"{label} iteration {c[0]}", c[1:]) for c in self.calls
+                if c[0] >= 1 and not torch.equal(c[4], c[1].to(c[4].dtype))]
+
+
+def upem_loop_moves(dev, ups, P, A, label):
+    """Runs the UPEM loop at ploidy P on `ups` = check_beam's (alleles,
+    weights, num_reads, eps, assign) and returns (its number of move
+    calls, its later calls that applied moves)."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    al, wt, nr, ep, asg = ups
+    with MovesRecorder() as rec:
+        tu.upem_optimize_device(al, wt, asg, nr, ep, P, A, device=dev)
+    return len(rec.calls), rec.later_with_moves(label)
+
+
+def check_later_moves(later):
+    """K4 against its plain version on every later UPEM iteration in
+    `later` ([(label, (assign, diff, num_reads, proposal))]); the one
+    that moves the most reads is timed. Returns (max_abs_err, kernel_s,
+    plain_s, bound, label) of that one, or None when `later` is empty."""
+    if not later:
+        return None
+    timed_label = max(later, key=lambda x: int((x[1][3] != x[1][0])
+                                              .sum()))[0]
+    err, out = 0.0, None
+    for label, (assign, diff, num_reads, _prop) in later:
+        res = check_moves(assign, diff, num_reads, diff.shape[2],
+                          label=label, timing=label == timed_label)
+        err = max(err, res[0])
+        if label == timed_label:
+            out = res
+    return (err, *out[1:], timed_label)
 
 
 def run_cli(sim_dir, out_dir, device="cuda", extra=()):
@@ -451,7 +593,7 @@ def device_busy_s(prof) -> float:
 def e2e_ecoli2(tmp):
     """The port's CLI on bench.py's ecoli2 community: first, second,
     traced and CPU runs, byte-equal. Returns (launches of the first run,
-    the second run's recorded dispatches)."""
+    the second run's recorded dispatches, its recorded move calls)."""
     from floria_tpu_torch import timing
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.sim.simulate import SimConfig, simulate
@@ -500,7 +642,7 @@ def e2e_ecoli2(tmp):
             raise AssertionError(f"kernel {k} was not launched by the "
                                  f"ecoli2 run: {launches}")
 
-    with DispatchRecorder() as recorder:
+    with DispatchRecorder() as recorder, MovesRecorder() as moves:
         rec, second = one_run("second")
     emit(rec)
     assert_same_tree(first, second, "ecoli2 second run")
@@ -509,6 +651,9 @@ def e2e_ecoli2(tmp):
                              f"the second run, {launches} in the first")
     if len(recorder.nw) != launches["nw_best"]:
         raise AssertionError(f"{len(recorder.nw)} NW partitions in the "
+                             f"second run, {launches} in the first")
+    if len(moves.calls) != launches["upem_moves"]:
+        raise AssertionError(f"{len(moves.calls)} move calls in the "
                              f"second run, {launches} in the first")
 
     from torch.profiler import ProfilerActivity, profile
@@ -528,18 +673,24 @@ def e2e_ecoli2(tmp):
     assert_same_tree(first, cpu, "ecoli2 card run against the CPU run")
     emit({"phase": "e2e", "config": "ecoli2", "byte_equal":
           ["second", "traced", "cpu"], "files": len(_tree(first))})
-    return launches, recorder
+    return launches, recorder, moves
 
 
-def check_dispatches(dev, recorder):
+def check_dispatches(dev, recorder, moves, sweep_later):
     """K1 and K4 against their plain versions at the main path's largest
     recorded beam dispatch: as dispatched, and on the same blocks at the
     next ploidy (the dispatch a further sweep level gives them). K4 runs
-    on the first UPEM iteration's input, the beam's assignments. Returns
-    [(k1_err, k1_s, k1_plain_s, k1_bound, k4_err, k4_s, k4_plain_s,
-    k4_bound)], the dispatch as made first."""
+    on the first UPEM iteration's input (the beam's assignments), and on
+    the later UPEM iterations that apply moves: the main path's own,
+    recorded in phase 4 (`moves`), those of the UPEM loop run here on the
+    next-ploidy dispatch, and `sweep_later` (phase 3's loop on the kernel
+    sweep); the one that moves the most reads is timed. Returns
+    ([(k1_err, k1_s, k1_plain_s, k1_bound, k4_err, k4_s, k4_plain_s,
+    k4_bound)] for the dispatch as made first and at the next ploidy,
+    check_later_moves' result)."""
     (al, wt, nr, ep, npt), P0, W, kw, (_res, asg) = max(
         recorder.beam, key=lambda b: b[0][0].shape[0])
+    A = kw["max_alleles"]
     out = []
     for P in (P0, P0 + 1):
         label = f"ecoli2 dispatch P={P}"
@@ -547,14 +698,24 @@ def check_dispatches(dev, recorder):
             label += " (same blocks)"
             npt = torch.full_like(npt, P)
         k1_err, k_s, p_s, ups, k1_bnd = check_beam(
-            dev, al, wt, nr, ep, npt, P, W=W, A=kw["max_alleles"],
+            dev, al, wt, nr, ep, npt, P, W=W, A=A,
             window=kw["window"], label=label, timing=True)
         if P == P0 and not torch.equal(asg, ups[4]):
             raise AssertionError(f"{label}: K1 differs from its own "
                                  "main-path result")
-        k4 = check_moves(*ups, P, A=kw["max_alleles"], label=label)
+        k4 = check_first_moves(ups, P, A, label=label + " iteration 0")
         out.append((k1_err, k_s, p_s, k1_bnd, *k4))
-    return out
+
+    main_later = moves.later_with_moves("ecoli2 main path")
+    n_next, next_later = upem_loop_moves(
+        dev, ups, P0 + 1, A, f"ecoli2 dispatch P={P0 + 1} (same blocks)")
+    emit({"phase": "dispatch", "kernel": "upem_moves",
+          "main_path_calls": len(moves.calls),
+          "main_path_later_with_moves": len(main_later),
+          f"p{P0 + 1}_loop_calls": n_next,
+          f"p{P0 + 1}_loop_later_with_moves": len(next_later),
+          "sweep_loop_later_with_moves": len(sweep_later)})
+    return out, check_later_moves(main_later + next_later + sweep_later)
 
 
 def check_nw(dev, case, label, timing=False):
@@ -596,10 +757,15 @@ def check_nw(dev, case, label, timing=False):
                                              a_max))
         rec.update(
             kernel_ms=k_s * 1e3, plain_ms=p_s * 1e3,
+            kernel_device_ms=kernel_device_ms(
+                lambda: tr.nw_best_cuda(q, si, nal, ref_tab, al_tab, a_max),
+                "nw_best_kernel"),
             cpp_host_ms=timed(lambda: tr.native.nw_batch(*host)) * 1e3,
             cpp_host_threads=tr.native.threads.num_threads(),
             job_upload_ms=timed(lambda: [torch.from_numpy(x).to(dev)
                                          for x in host[:3]]) * 1e3)
+        AB_CASES["nw_best"][label] = (
+            *(torch.from_numpy(x) for x in host), a_max)
     emit(rec)
     return err, k_s, p_s, got, bnd
 
@@ -663,8 +829,14 @@ def loaded_reference_modules():
                   if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
 
 
-def main() -> None:
+def main(argv=None) -> None:
     global CARD
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ab-inputs", metavar="PATH",
+                    help="also save the inputs of every timed K4 and K5 "
+                    "case (torch.save of {kernel: {label: args}}) for "
+                    "scripts/torch_kernel_parent_ab.py")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     sys.path.insert(0, REPO)
@@ -687,7 +859,8 @@ def main() -> None:
         cuda_s = time.time() - t0
         native_build.result()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if any(w in ln for w in ("entry function", "registers",
+                                      "spill"))]
     emit({"phase": "build", "seconds": time.time() - t0,
           "cuda_kernels_s": cuda_s, "ptxas": ptxas})
 
@@ -703,14 +876,17 @@ def main() -> None:
         k1_err = max(k1_err, check_beam(
             dev, *inp, P, window=384 if label == "windowed" else 0,
             label=label)[0])
-    k4_err = check_moves(*ups, 5, label="sweep")[0]
+    k4_err, k4_sweep_s, _p_s, k4_sweep_bnd = check_first_moves(
+        ups, 5, label="sweep")
+    _n, sweep_later = upem_loop_moves(dev, ups, 5, 2, "sweep")
     del ups
 
     with tempfile.TemporaryDirectory(prefix="floria_smoke_") as tmp:
-        launches, recorder = e2e_ecoli2(tmp)
-        per_dispatch = check_dispatches(dev, recorder)
+        launches, recorder, moves = e2e_ecoli2(tmp)
+        per_dispatch, k4_later = check_dispatches(dev, recorder, moves,
+                                                  sweep_later)
         k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
-        del recorder
+        del recorder, moves, sweep_later
         parity_long3(tmp)
 
     loaded = loaded_reference_modules()
@@ -727,6 +903,22 @@ def main() -> None:
           "bound_ecoli2_p2_ms": k1_bnd[0],
           "bound_ecoli2_p3_ms": per_dispatch[1][3][0],
           "bound_sweep_ms": k1_sweep_bnd[0]})
+    if k4_later is not None:
+        k4_err = max(k4_err, k4_later[0])
+    emit({"phase": "k4_summary", "launches_ecoli2": launches["upem_moves"],
+          "ecoli2_p2_ms": k4_s * 1e3,
+          "ecoli2_p3_ms": per_dispatch[1][5] * 1e3,
+          "later_iteration": None if k4_later is None else k4_later[4],
+          "later_iteration_ms": None if k4_later is None
+          else k4_later[1] * 1e3,
+          "sweep_ms": k4_sweep_s * 1e3,
+          "bound_ecoli2_p2_ms": k4_bnd[0],
+          "bound_ecoli2_p3_ms": per_dispatch[1][7][0],
+          "bound_later_iteration_ms": None if k4_later is None
+          else k4_later[3][0],
+          "bound_sweep_ms": k4_sweep_bnd[0]})
+    if args.ab_inputs:
+        torch.save(AB_CASES, args.ab_inputs)
 
     def row(name, source, replaces, err, k_s, p_s, bnd):
         return {"name": name, "route": "cuda", "source": source,

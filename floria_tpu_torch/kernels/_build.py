@@ -117,7 +117,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.floria_beam_cluster.restype = ctypes.c_int
     lib.floria_beam_cluster.argtypes = [I]
     lib.floria_upem_moves.restype = ctypes.c_int
-    lib.floria_upem_moves.argtypes = [P] * 7 + [I] * 3 + [P]
+    lib.floria_upem_moves.argtypes = (
+        [P] * 5          # assign, diff, num_reads, proposal, scratch
+        + [ctypes.c_longlong]  # scratch stride
+        + [I] * 6        # G R P cap head smem
+        + [P])           # stream
     lib.floria_nw_best.restype = ctypes.c_int
     lib.floria_nw_best.argtypes = [P] * 7 + [ctypes.c_longlong, I, I, P]
 

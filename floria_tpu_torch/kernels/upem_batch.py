@@ -7,10 +7,11 @@ order: the reference's 13-bit f32 plane pairs, `_cmp_planes` and the
 HIGH/HIGHEST precision contract are not needed. The TF32 guard keeps
 f32 out of these products anyway (they run in f64).
 
-The sequential move walk (`_apply_moves_single`) is kernel K4
-(csrc/upem_moves.cu) on CUDA and a host loop on the CPU. The <= 20
-iteration hill-climb stays a host loop over tensors that syncs once per
-iteration on `active.any()`.
+The move function (`_apply_moves_single`: part sizes, candidate gains,
+their stable sort and the capped walk) is kernel K4 (csrc/upem_moves.cu)
+on CUDA, one launch per UPEM iteration, and `_move_candidates` plus a
+host walk on the CPU. The <= 20 iteration hill-climb stays a host loop
+over tensors that syncs once per iteration on `active.any()`.
 """
 
 from __future__ import annotations
@@ -90,31 +91,36 @@ def _move_candidates(assign, diff, num_reads):
     """(sizes0 [G, P] int32, order [G, R*P] int64, n_valid [G] int64):
     the candidate moves of `_apply_moves_single`, sorted by gain desc
     then generation order (stable sort, the order of the reference's
-    jnp.argsort(stable=True) on the same keys)."""
+    jnp.argsort(stable=True) on the same keys). A negative part wraps to
+    P + a, as the reference's indexing wraps it; padding rows are never
+    candidates."""
     G, R, P = diff.shape
     dev = diff.device
     live = torch.arange(R, device=dev)[None, :] < num_reads.long()[:, None]
     a = assign.long()
     parts = torch.arange(P, device=dev)
     sizes0 = ((a[..., None] == parts) & live[..., None]).sum(dim=1)
-    ac = a.clamp(0, P - 1)
-    own = diff.gather(2, ac[..., None])[..., 0]
+    aw = torch.where(a < 0, a + P, a).clamp(0, P - 1)
+    own = diff.gather(2, aw[..., None])[..., 0]
     gains = own[..., None] - diff                                  # [G,R,P]
     valid = ((gains > 0.0) & live[..., None]
              & (parts[None, None, :] != a[..., None])
-             & (sizes0.gather(1, ac) > 1)[..., None])
+             & (sizes0.gather(1, aw) > 1)[..., None])
     key = torch.where(valid, -gains, float("inf")).reshape(G, R * P)
     order = torch.sort(key, dim=1, stable=True).indices
     n_valid = valid.reshape(G, R * P).sum(dim=1)
-    return sizes0.to(torch.int32).contiguous(), order.contiguous(), \
-        n_valid.contiguous()
+    return sizes0.to(torch.int32), order, n_valid
 
 
-def apply_moves_plain(assign, order, n_valid, sizes0) -> torch.Tensor:
-    """Plain version of K4: the sequential capped walk, on the host."""
+def apply_moves_plain(assign, diff, num_reads) -> torch.Tensor:
+    """Plain version of K4, the whole `_apply_moves_single` over a batch:
+    the candidates and their stable sort in torch (`_move_candidates`),
+    then the sequential capped walk on the host. Proposal [G, R] int32 on
+    the inputs' device."""
+    sizes0, order, n_valid = _move_candidates(assign, diff, num_reads)
     G, R = assign.shape
-    P = sizes0.shape[1]
-    a = assign.cpu().numpy()
+    P = diff.shape[2]
+    a = assign.cpu().numpy().astype(np.int32)
     out = a.copy()
     od = order.cpu().numpy()
     nv = n_valid.cpu().numpy()
@@ -140,17 +146,42 @@ def apply_moves_plain(assign, order, n_valid, sizes0) -> torch.Tensor:
     return torch.from_numpy(out).to(assign.device)
 
 
-def apply_moves_cuda(assign, order, n_valid, sizes0) -> torch.Tensor:
-    """K4 launch (csrc/upem_moves.cu). CUDA tensors only."""
-    G, R = assign.shape
-    P = sizes0.shape[1]
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def moves_layout(R: int, P: int):
+    """(cap, head, work): K4's candidate capacity R * (P - 1), the bytes
+    of its part sizes and of its per-instance work arrays (f64 gains and
+    int32 indices of the candidates, the proposal and moved flags of the
+    reads)."""
+    cap = R * max(P - 1, 0)
+    return cap, _round16(4 * P), _round16(12 * cap + 5 * R)
+
+
+def moves_in_shared(R: int, P: int, dev) -> bool:
+    """Whether K4 keeps an instance's work arrays in shared memory (else
+    in a device-memory scratch): they fit the card's opt-in limit."""
+    _cap, head, work = moves_layout(R, P)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    return head + work <= limit
+
+
+def apply_moves_cuda(assign, diff, num_reads) -> torch.Tensor:
+    """K4 launch (csrc/upem_moves.cu): the whole `_apply_moves_single`,
+    one CTA per instance. CUDA tensors only: assign [G, R] int32, diff
+    [G, R, P] f64 quanta, num_reads [G] int32, all contiguous. Returns
+    the proposal [G, R] int32."""
     dev = assign.device
     if dev.type != "cuda":
         raise ValueError("apply_moves_cuda needs CUDA tensors")
+    if diff.dim() != 3:
+        raise ValueError(f"apply_moves_cuda: diff must be [G, R, P], got "
+                         f"{tuple(diff.shape)}")
+    G, R, P = diff.shape
     expect = {"assign": (assign, torch.int32, (G, R)),
-              "order": (order, torch.int64, (G, R * P)),
-              "n_valid": (n_valid, torch.int64, (G,)),
-              "sizes0": (sizes0, torch.int32, (G, P))}
+              "diff": (diff, torch.float64, (G, R, P)),
+              "num_reads": (num_reads, torch.int32, (G,))}
     for name, (x, dt, shape) in expect.items():
         if x.device != dev or x.dtype != dt or tuple(x.shape) != shape \
                 or not x.is_contiguous():
@@ -158,28 +189,34 @@ def apply_moves_cuda(assign, order, n_valid, sizes0) -> torch.Tensor:
                 f"apply_moves_cuda: {name} must be a contiguous {dt} "
                 f"{shape} tensor on {dev}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
-    new_assign = torch.empty_like(assign)
-    moved = torch.empty((G, R), dtype=torch.uint8, device=dev)
-    cur = torch.empty((G, P), dtype=torch.int32, device=dev)
+    cap, head, work = moves_layout(R, P)
+    proposal = torch.empty_like(assign)
+    if moves_in_shared(R, P, dev):
+        scratch, smem = None, head + work
+    else:
+        scratch = torch.empty(G * work, dtype=torch.uint8, device=dev)
+        smem = head
     lib = _build.get_lib()
     ptr = ctypes.c_void_p
     rc = lib.floria_upem_moves(
-        *(ptr(x.data_ptr()) for x in (assign, order, n_valid, sizes0,
-                                      new_assign, moved, cur)),
-        G, R, P, ptr(torch.cuda.current_stream(dev).cuda_stream))
+        *(ptr(x.data_ptr()) for x in (assign, diff, num_reads, proposal)),
+        ptr(None if scratch is None else scratch.data_ptr()), work,
+        G, R, P, cap, head, smem,
+        ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(rc, "upem_moves")
     _build.LAUNCHES["upem_moves"] += 1
-    return new_assign
+    return proposal
 
 
 def apply_moves(assign, diff, num_reads) -> torch.Tensor:
     """Batched `_apply_moves_single`: proposal [G, R] int32. CUDA
-    tensors go to K4, CPU tensors to the host walk."""
+    tensors go to K4, CPU tensors to its plain version."""
     assign = assign.to(torch.int32).contiguous()
-    sizes0, order, n_valid = _move_candidates(assign, diff, num_reads)
+    diff = diff.contiguous()
+    num_reads = num_reads.to(torch.int32).contiguous()
     if assign.device.type == "cuda":
-        return apply_moves_cuda(assign, order, n_valid, sizes0)
-    return apply_moves_plain(assign, order, n_valid, sizes0)
+        return apply_moves_cuda(assign, diff, num_reads)
+    return apply_moves_plain(assign, diff, num_reads)
 
 
 def upem_optimize_device(alleles, weights, assign0, num_reads, epsilon,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-same card, bitwise: K1 (beam scan + traceback), K4 (UPEM move walk) and
-K5 (realignment NW).
+same card, bitwise: K1 (beam scan + traceback), K4 (the UPEM move
+function: candidates, sort and walk) and K5 (realignment NW, two alleles
+per DP).
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -18,6 +19,7 @@ from floria_tpu_torch.kernels import beam as TB
 from floria_tpu_torch.kernels import realign as TR
 from floria_tpu_torch.kernels import upem_batch as TU
 from test_beam_pallas import _make
+from test_torch_upem import moves_case
 
 pytestmark = pytest.mark.cuda
 
@@ -117,18 +119,60 @@ def test_beam_kernel_dedup_case_matches_plain(dev):
     _assert_same(*_kernel_vs_plain(dev, *inp, P, 10))
 
 
+def _moves_kernel_vs_plain(dev, assign, diff, nreads):
+    t = [torch.as_tensor(x).to(dev) for x in (assign, diff, nreads)]
+    got = TU.apply_moves_cuda(*t)
+    torch.cuda.synchronize()
+    want = TU.apply_moves_plain(*t)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    return got
+
+
 @pytest.mark.parametrize("ploidy,seed", [(2, 0), (3, 1), (5, 2)])
 def test_move_walk_kernel_matches_plain(dev, ploidy, seed):
+    """K4 as the whole move function on the first UPEM iteration's input
+    (the beam's assignments) and on a later one (after a walk)."""
     args = _random_case(6, 64, 128, ploidy, seed, [ploidy] * 6)
     al, wt, nr, ep, npt = TB._inputs(*args, dev)
     _res, asg = TB.beam_search_traceback(al, wt, nr, ep, npt, ploidy, 10,
                                          max_alleles=2, device=dev)
     assign = asg.to(torch.int32).contiguous()
-    diff, _score = TU._eval_diff_score(al, wt, assign, ep, ploidy, 2)
-    sizes0, order, n_valid = TU._move_candidates(assign, diff, nr)
-    got = TU.apply_moves_cuda(assign, order, n_valid, sizes0)
-    want = TU.apply_moves_plain(assign, order, n_valid, sizes0)
-    assert torch.equal(got, want)
+    for _it in range(2):
+        diff, _score = TU._eval_diff_score(al, wt, assign, ep, ploidy, 2)
+        assign = _moves_kernel_vs_plain(dev, assign, diff.contiguous(), nr)
+
+
+@pytest.mark.parametrize("case", ["ties", "no_valid", "equal_gains",
+                                  "padding", "large_shared"])
+@pytest.mark.parametrize("P", [2, 3, 5])
+def test_move_kernel_edge_cases_match_plain(dev, case, P):
+    R = 2100 if case == "large_shared" else 48
+    assign, diff, nreads = moves_case(6, R, P, 7 * P + len(case))
+    if case == "no_valid":
+        diff[:] = 4096.0        # no positive gain anywhere
+    elif case == "equal_gains":
+        diff[:] = 8192.0
+        diff[np.arange(6)[:, None], np.arange(R)[None, :],
+             np.clip(assign, 0, P - 1)] = 3 * 8192.0
+    elif case == "padding":
+        nreads[:] = [0, 1, 2, R // 3, R - 1, R]
+        for g in range(6):
+            assign[g, nreads[g]:] = -1
+    got = _moves_kernel_vs_plain(dev, assign, diff, nreads)
+    if case == "no_valid":
+        assert np.array_equal(got.cpu().numpy(), assign)
+    if case == "large_shared":   # over 48 KB of dynamic shared memory
+        assert sum(TU.moves_layout(R, P)[1:]) > 48 * 1024 or P == 2
+        assert TU.moves_in_shared(R, P, dev)
+
+
+def test_move_kernel_global_scratch_path_matches_plain(dev):
+    """R * (P - 1) candidates too many for shared memory: the same kernel
+    sorts in a device-memory scratch."""
+    R, P = 6000, 5
+    assert not TU.moves_in_shared(R, P, dev)
+    _moves_kernel_vs_plain(dev, *moves_case(4, R, P, 11, levels=40))
 
 
 def test_wrappers_count_launches_and_check_inputs(dev):
@@ -137,14 +181,22 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     TB.beam_search_traceback(*args, 2, 10, max_alleles=2, device=dev)
     assert _build.LAUNCHES["beam_scan"] == 1
     assign = torch.zeros((2, 30), dtype=torch.int32, device=dev)
-    order = torch.zeros((2, 60), dtype=torch.int64, device=dev)
-    n_valid = torch.zeros(2, dtype=torch.int64, device=dev)
-    sizes0 = torch.zeros((2, 2), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
-        TU.apply_moves_cuda(assign, order.to(torch.int32), n_valid, sizes0)
+    diff = torch.zeros((2, 30, 2), dtype=torch.float64, device=dev)
+    num_reads = torch.full((2,), 30, dtype=torch.int32, device=dev)
+    for bad in ((assign.long(), diff, num_reads),
+                (assign, diff.float(), num_reads),
+                (assign, diff.transpose(0, 1).contiguous().transpose(0, 1),
+                 num_reads),
+                (assign, diff, num_reads[:1]),
+                (assign.cpu(), diff, num_reads)):
+        with pytest.raises(ValueError):
+            TU.apply_moves_cuda(*bad)
     assert _build.LAUNCHES["upem_moves"] == 0
-    TU.apply_moves_cuda(assign, order, n_valid, sizes0)
+    TU.apply_moves_cuda(assign, diff, num_reads)
     assert _build.LAUNCHES["upem_moves"] == 1
+    TU.apply_moves(assign, diff.transpose(1, 2).contiguous().transpose(1, 2),
+                   num_reads.long())
+    assert _build.LAUNCHES["upem_moves"] == 2
 
 
 @pytest.mark.parametrize("n,A,a_max,nal_set", [
@@ -152,6 +204,11 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     (1000, 2, 2, None),      # 1000 = 7 blocks of 128 + 104
     (1000, 4, 4, None),      # nal 0..4
     (333, 4, 2, None),       # the biallelic partition of a 4-column table
+    (1000, 4, 1, None),      # one allele: a dummy high lane
+    (1000, 4, 3, None),      # odd a_max: (0, 1) then (2, dummy)
+    (1000, 3, 3, None),
+    (1000, 4, 3, 2),         # nal < a_max everywhere
+    (1000, 4, 4, 3),
 ])
 def test_nw_kernel_matches_plain(dev, n, A, a_max, nal_set):
     q, si, nal, ref_tab, al_tab = nw_case(n=n, T=97, A=A, seed=n + A)
@@ -166,6 +223,30 @@ def test_nw_kernel_matches_plain(dev, n, A, a_max, nal_set):
     if a_max == A:
         assert np.array_equal(got.cpu().numpy(),
                               TR.native.nw_batch(q, si, nal, ref_tab, al_tab))
+
+
+def test_nw_kernel_extreme_windows_match_plain_and_cpp(dev):
+    """Windows that drive the scores toward NEG: every base a mismatch,
+    and a query shifted by 16 bases (long gaps), at four alleles."""
+    q, si, nal, ref_tab, al_tab = nw_case(n=400, T=40, A=4, seed=9)
+    rng = np.random.default_rng(9)
+    ref_tab[:] = 1
+    al_tab[:] = rng.integers(1, 16, al_tab.shape)
+    qu = np.full((400, 32), 2, np.uint8)
+    for i in range(1, 400, 2):
+        qu[i] = np.concatenate([rng.integers(3, 16, 16), np.ones(16)])
+    q = (qu[:, 0::2] | (qu[:, 1::2] << 4)).astype(np.uint8)
+    nal[:] = 4
+    t = [torch.from_numpy(x).to(dev) for x in (q, si, nal, ref_tab, al_tab)]
+    scores = torch.empty((400, 4), dtype=torch.int32, device=dev)
+    got = TR.nw_best_cuda(*t, 4, scores=scores)
+    torch.cuda.synchronize()
+    want_sc = TR.nw_allele_scores_plain(*t, 4)
+    assert torch.equal(scores, want_sc)
+    assert int(want_sc[0::2].max()) <= -20
+    assert torch.equal(got, TR.nw_best_plain(*t, 4))
+    assert np.array_equal(got.cpu().numpy(),
+                          TR.native.nw_batch(q, si, nal, ref_tab, al_tab))
 
 
 def test_nw_wrapper_counts_launches_and_checks_inputs(dev):

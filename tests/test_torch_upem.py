@@ -1,6 +1,7 @@
 """The PyTorch port's UPEM (plain path, CPU) against the JAX reference,
-bitwise: move evaluation, unit-weight MEC stats, the move walk and the
-whole hill-climb, at ploidies 2 and 3."""
+bitwise: move evaluation, unit-weight MEC stats, the move function (the
+plain version of kernel K4) and the whole hill-climb, at ploidies 2 and
+3, plus tie-heavy move cases and the candidate order K4 sorts by."""
 
 import jax
 import jax.numpy as jnp
@@ -71,11 +72,71 @@ def test_apply_moves_matches_vmapped_jax(ploidy, seed):
                                    ploidy, 2)
         want = np.asarray(jax.vmap(U._apply_moves_single)(
             jnp.asarray(assign), d, jnp.asarray(nreads)))
-    got = TU.apply_moves(torch.from_numpy(assign),
-                         torch.from_numpy(np.array(d)),
-                         torch.from_numpy(nreads))
+    args = _t(assign, np.array(d), nreads)
+    got = TU.apply_moves_plain(*args)
     assert (want != assign).any()
     np.testing.assert_array_equal(want, got.numpy())
+    assert torch.equal(TU.apply_moves(*args), got)   # CPU -> plain
+
+
+def moves_case(G, R, P, seed, levels=3):
+    """(assign [G, R] int32, diff [G, R, P] f64 quanta, num_reads [G]
+    int32) with few distinct distances, so many gains tie: padding rows
+    (-1), an instance whose distances are all equal and one with no live
+    read (n_valid = 0 for both), and a live read whose part is -1."""
+    rng = np.random.default_rng(seed)
+    diff = rng.integers(0, levels, (G, R, P)).astype(np.float64) * 4096.0
+    assign = rng.integers(0, P, (G, R)).astype(np.int32)
+    nreads = rng.integers(R // 2, R + 1, G).astype(np.int32)
+    for g in range(G):
+        assign[g, nreads[g]:] = -1
+    diff[1] = 8192.0
+    nreads[2] = 0
+    assign[3, 0] = -1          # wraps to part P - 1, which it leaves
+    diff[3, 0] = 0.0
+    diff[3, 0, P - 1] = 4096.0 * levels
+    return assign, diff, nreads
+
+
+def _jax_moves(assign, diff, nreads):
+    with jax.enable_x64():
+        return np.asarray(jax.vmap(U._apply_moves_single)(
+            jnp.asarray(assign), jnp.asarray(diff), jnp.asarray(nreads)))
+
+
+@pytest.mark.parametrize("P,seed", [(2, 1), (3, 2), (5, 3)])
+def test_apply_moves_plain_matches_vmapped_jax_on_ties(P, seed):
+    assign, diff, nreads = moves_case(6, 48, P, seed)
+    want = _jax_moves(assign, diff, nreads)
+    got = TU.apply_moves_plain(*_t(assign, diff, nreads))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(want, got.numpy())
+    n_valid = TU._move_candidates(*_t(assign, diff, nreads))[2]
+    assert n_valid[1] == 0 and n_valid[2] == 0 and (n_valid > 0).sum() >= 3
+    assert (want != assign).any()
+    np.testing.assert_array_equal(want[1:3], assign[1:3])
+    assert want[3, 0] == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_composite_key_order_is_the_stable_argsort(seed):
+    """K4 sorts the valid candidates by (gain descending, generation index
+    ascending); over the valid prefix that is the reference's
+    jnp.argsort(where(valid, -gain, inf), stable=True), and the invalid
+    candidates follow in generation order."""
+    rng = np.random.default_rng(seed)
+    K = 700
+    gain = rng.integers(-3, 5, K).astype(np.float64) * 4096.0
+    valid = (gain > 0) & (rng.random(K) < 0.8)
+    with jax.enable_x64():
+        want = np.asarray(jnp.argsort(
+            jnp.where(jnp.asarray(valid), -jnp.asarray(gain), jnp.inf),
+            stable=True))
+    k = np.nonzero(valid)[0]
+    composite = k[np.lexsort((k, -gain[k]))]
+    n = len(k)
+    np.testing.assert_array_equal(want[:n], composite)
+    np.testing.assert_array_equal(want[n:], np.nonzero(~valid)[0])
 
 
 @pytest.mark.parametrize("ploidy,seed", CASES)
