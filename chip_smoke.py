@@ -18,7 +18,8 @@ each; any failure raises (exit code != 0):
                 UPEM move function, (assign, diff, num_reads) ->
                 proposal) against its plain version on the sweep's first
                 UPEM iteration, timed;
-  4. e2e      - the port's CLI on bench.py's `ecoli2` community (1 Mbp,
+  4. e2e      - the port's CLI (`--device cuda:0`: phases 3-7 use one card
+                on any machine) on bench.py's `ecoli2` community (1 Mbp,
                 2 strains, 50k SNPs, 50x per strain): a first run (its
                 kernel launch counts), a second run (its K1 dispatches,
                 K5 partitions and K4 calls recorded), a third run under
@@ -38,7 +39,25 @@ each; any failure raises (exit code != 0):
                 windows at 4 alleles;
   7. parity   - the port's CLI on the `long3` community must write the
                 oracle pipeline's bytes (tests/data/long3_oracle.json);
-  8. summary  - K1's and K4's times at the `ecoli2` dispatch (P=2, P=3)
+  8. parallel - the parallel layer (floria_tpu_torch/parallel/), two
+                shards on the one card (one shard per card where the
+                machine has more): (a) K1 through beam_search_sharded (the
+                reference's API twin; the CLI's sweep splits its
+                dispatches itself, as (b) runs it) at phase 4's largest
+                dispatch, bitwise equal to the unsharded K1 call on
+                cuda:0 and to the plain scan, one K1 launch per shard,
+                both calls timed; (b) adaptive_sweep through the sharded
+                dispatch on the kernel sweep's workload, equal to the
+                sweep on cuda:0 alone, both timed; (c) entry.py's
+                dryrun_multichip; (d) the CLI as two ranks
+                (--num-processes 2, the coordinator on localhost, each
+                rank's blocks over every card) against
+                one process on BASELINE.json config #5's community
+                (scripts/multihost_bench.py `build_sim`: 500 contigs of 60
+                kbp, 2 strains, 300 SNPs, 8x per strain, 6 kbp reads): the
+                same bytes, each rank's launch counts (every rank must
+                launch K1), both wall times;
+  9. summary  - K1's and K4's times at the `ecoli2` dispatch (P=2, P=3)
                 and on the sweep, and K4's at the timed later iteration,
                 beside their bounds and the `ecoli2` launch counts; the
                 run fails if any jax or `floria_tpu` module is loaded.
@@ -87,6 +106,22 @@ GOLDEN_LONG3 = os.path.join(REPO, "tests", "data", "long3_oracle.json")
 ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
               coverage_per_strain=50.0, read_length=9_000,
               read_length_sd=1_500.0, error_rate=0.02, seed=11)
+
+
+# scripts/multihost_bench.py's `build_sim` community, BASELINE.json's
+# config #5 (a 500-contig assembly sharded over processes), one contig's
+# SimConfig fields; contig c is named mg{c:04d} and seeded 4000 + c.
+MULTI_CONTIG = dict(contig_len=60_000, num_strains=2, num_snps=300,
+                    coverage_per_strain=8.0, read_length=6_000,
+                    read_length_sd=1_000.0, error_rate=0.02)
+MULTI_CONTIGS = 500
+
+
+def multi_configs(n):
+    from floria_tpu_torch.sim.simulate import SimConfig
+
+    return [SimConfig(contig_name=f"mg{c:04d}", seed=4000 + c,
+                      **MULTI_CONTIG) for c in range(n)]
 
 
 def make_workload(G, R, S, num_strains=3, epsilon=0.02, seed=0):
@@ -366,7 +401,7 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
           "G": int(al.shape[0]), "R": int(al.shape[1]), "S": int(S),
           "P": P, "num_parts": sorted(set(npt.tolist())),
           "window": int(window),
-          "cluster_width": tb.cluster_width(int(al.shape[0])),
+          "cluster_width": tb.cluster_width(int(al.shape[0]), dev),
           "bitwise_equal": True,
           "cpu_plain_bitwise_equal": cpu_ref or None,
           "cpu_plain_s": cpu_s,
@@ -510,7 +545,7 @@ def check_later_moves(later):
     return (err, *out[1:], timed_label)
 
 
-def run_cli(sim_dir, out_dir, device="cuda", extra=()):
+def run_cli(sim_dir, out_dir, device="cuda:0", extra=()):
     from floria_tpu_torch import cli
 
     cli.main(["-b", os.path.join(sim_dir, "sim.bam"),
@@ -607,10 +642,10 @@ def e2e_ecoli2(tmp):
     out_dir = os.path.join(tmp, "ecoli2_out")
     contig_dir = os.path.join(out_dir, cfg.contig_name)
 
-    def one_run(label, device="cuda"):
+    def one_run(label, device="cuda:0"):
         t0 = time.perf_counter()
         run_cli(sim_dir, out_dir, device=device)
-        if device == "cuda":
+        if device != "cpu":
             torch.cuda.synchronize()
         e2e_s = time.perf_counter() - t0
         for name in (f"{cfg.contig_name}.haplosets",
@@ -824,6 +859,267 @@ def parity_long3(tmp):
           "byte_equal": sorted(golden["outputs"])})
 
 
+def workload_blocks(G=8, R=320, S=2048):
+    """make_workload's instances as the sweep's (key, BlockTensor)
+    blocks. The sweep takes phred quals, so each weight becomes its qual
+    (1 - 10^(-q/10) inverted) and then the table's weight of that qual."""
+    from floria_tpu_torch import state
+    from floria_tpu_torch.kernels.blocktensor import BlockTensor
+
+    alleles, weights, _nr, _eps = make_workload(G, R, S)
+    table = state.phred_table()
+    cov = alleles >= 0
+    with np.errstate(divide="ignore"):
+        q = np.rint(-10.0 * np.log10(1.0 - weights.astype(np.float64)))
+    quals = np.where(cov, q, 0).astype(np.uint8)
+    if not np.allclose(table[quals], weights, rtol=0, atol=1e-6):
+        raise AssertionError("make_workload's weights are not phred "
+                             "weights")
+    return [(g, BlockTensor(
+        frag_ids=np.arange(R, dtype=np.int64), lo=1, num_sites=S,
+        num_reads=R, alleles=alleles[g], weights=table[quals[g]],
+        snp_range=(1, S), quals=quals[g])) for g in range(G)]
+
+
+def _assert_sweeps_equal(label, a, b):
+    for got, want, what in zip(a, b, ("chosen", "mec", "expected")):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: {what} keys differ")
+        for k in want:
+            x, y = got[k], want[k]
+            if what == "chosen":
+                if x[0] != y[0] or not np.array_equal(x[1], y[1]):
+                    raise AssertionError(f"{label}: block {k} differs")
+            elif not np.array_equal(x, y):
+                raise AssertionError(f"{label}: {what} of {k} differs")
+
+
+# One rank of the CLI in its own process: the user's entry point, then
+# its launch counts, the seconds of cli.main and its stages, and any jax
+# or `floria_tpu` module it loaded.
+RANK = r"""
+import json, sys, time
+sys.path.insert(0, {repo!r})
+from floria_tpu_torch import cli, timing
+from floria_tpu_torch.kernels import _build
+t0 = time.perf_counter()
+cli.main(sys.argv[1:])
+print("RANK " + json.dumps({{"launches": dict(_build.LAUNCHES),
+    "cli_s": time.perf_counter() - t0, "stages_s": dict(timing.STAGE_TIMES),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
+}}))
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(sim_dir, out_dir, nproc, timeout=600):
+    """The port's CLI as `nproc` ranks on the card (the coordinator on
+    localhost). Returns (wall seconds, [each rank's record: launch
+    counts, seconds in cli.main, stage seconds]);
+    raises unless every rank exits 0; kills them all on the way out. Each
+    rank writes its output to files beside `out_dir` (a rank blocked on
+    a full pipe would hold the other at the barrier)."""
+    argv = ["-b", os.path.join(sim_dir, "sim.bam"),
+            "-v", os.path.join(sim_dir, "sim.vcf"),
+            "-r", os.path.join(sim_dir, "sim.fa"), "-o", out_dir,
+            "--overwrite", "--device", "cuda",
+            "--num-processes", str(nproc),
+            "--coordinator", f"127.0.0.1:{_free_port()}"]
+    code = RANK.format(repo=REPO)
+    logs = [f"{out_dir}.{nproc}.rank{k}" for k in range(nproc)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for k, log in enumerate(logs):
+            with open(log + ".out", "w") as out, \
+                    open(log + ".err", "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, *argv, "--process-id",
+                     str(k)], stdout=out, stderr=err))
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for k, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log + ".err") as fh:
+                raise AssertionError(f"rank {k} of {nproc} exited "
+                                     f"{p.returncode}:\n{fh.read()[-4000:]}")
+        with open(log + ".out") as fh:
+            rec = json.loads([ln for ln in fh.read().splitlines()
+                              if ln.startswith("RANK ")][-1][5:])
+        if rec.pop("loaded"):
+            raise AssertionError(f"rank {k} loaded jax or floria_tpu")
+        ranks.append(rec)
+    return wall, ranks
+
+
+def _shared_tree(root):
+    """Output files without cmd.log and the ranks' own summary TSVs (the
+    merge's inputs)."""
+    return [f for f in _tree(root)
+            if not (f.startswith("contig_ploidy_info.")
+                    and f.count(".") == 2)]
+
+
+def parallel_phase(dev, recorder, tmp):
+    """Phase 8: the parallel layer, two shards on the one card or one
+    shard per card of a machine with more; the unsharded references run
+    on `dev` (cuda:0) alone. Returns the sharded K1 record."""
+    from floria_tpu_torch.entry import dryrun_multichip
+    from floria_tpu_torch.kernels import _build
+    from floria_tpu_torch.kernels import beam as tb
+    from floria_tpu_torch.options import Options
+    from floria_tpu_torch.parallel.mesh import beam_search_sharded
+    from floria_tpu_torch.phase.local import adaptive_sweep
+    from floria_tpu_torch.sim.simulate import simulate_multi
+
+    n_cards = torch.cuda.device_count()
+    mesh = ([torch.device("cuda", i) for i in range(n_cards)]
+            if n_cards > 1 else [dev] * 2)
+
+    # (a) K1 through the sharded dispatch at phase 4's largest dispatch.
+    (al, wt, nr, ep, npt), P, W, kw, _out = max(
+        recorder.beam, key=lambda b: b[0][0].shape[0])
+    A, window = kw["max_alleles"], kw["window"]
+    al, wt, nr, ep, npt = tb._inputs(al, wt, nr, ep, npt, dev)
+
+    def sharded():
+        return beam_search_sharded(mesh, al, wt, nr, ep, npt, P, W,
+                                   window=window, max_alleles=A)
+
+    def unsharded():
+        res, asg = tb.beam_search_traceback(al, wt, nr, ep, npt, P, W,
+                                            max_alleles=A, window=window,
+                                            device=dev)
+        return type(res)(*(x.cpu().numpy() for x in res)), \
+            asg.cpu().numpy()
+
+    _build.LAUNCHES.clear()
+    got = sharded()
+    launches = dict(_build.LAUNCHES)
+    if launches.get("beam_scan", 0) != len(mesh):
+        raise AssertionError(f"sharded K1: {launches} launches for "
+                             f"{len(mesh)} shards")
+    S = al.shape[-1]
+    win = S if window <= 0 or window >= S else window
+    prep = tb._prepare(al, wt, ep, A, P, win, True)
+    plain = tb.beam_scan_plain(al, wt, nr, *prep[:2], npt, *prep[2:], P=P,
+                               W=W, A=A, window=win)
+    plain = (type(plain)(*(x.cpu().numpy() for x in plain)),
+             tb.traceback_batch(plain).cpu().numpy())
+    err = 0.0
+    for label, ref in (("unsharded K1", unsharded()), ("plain", plain)):
+        for name, a, b in zip(ref[0]._fields + ("assign",),
+                              (*ref[0], ref[1]), (*got[0], got[1])):
+            e = max_abs_diff(torch.from_numpy(a), torch.from_numpy(b))
+            if e != 0.0 or not np.array_equal(a, b):
+                raise AssertionError(f"sharded K1: {name} differs from "
+                                     f"the {label} (max abs {e})")
+            err = max(err, e)
+    k1 = {"phase": "parallel", "case": "sharded K1 at the ecoli2 dispatch",
+          "shards": len(mesh), "cards": len(set(mesh)),
+          "G": int(al.shape[0]), "R": int(al.shape[1]),
+          "S": int(S), "P": P, "launches": launches["beam_scan"],
+          "bitwise_equal": ["unsharded K1", "plain"], "max_abs_err": err,
+          "cluster_width_shard": tb.cluster_width(
+              -(-int(al.shape[0]) // len(mesh)), mesh[-1]),
+          "sharded_ms": timed(sharded) * 1e3,
+          "unsharded_ms": timed(unsharded) * 1e3}
+    emit(k1)
+
+    # (b) The sweep through the sharded dispatch.
+    blocks = workload_blocks()
+    opts = Options(epsilon=0.02, max_ploidy=5)
+    t0 = time.perf_counter()
+    one = adaptive_sweep(blocks, opts, device=dev)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    two = adaptive_sweep(blocks, opts, device=mesh)
+    torch.cuda.synchronize()
+    two_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for k in ("beam_scan", "upem_moves"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"sharded sweep: {k} not launched "
+                                 f"({launches})")
+    _assert_sweeps_equal("sharded sweep", two, one)
+    emit({"phase": "parallel", "case": "sharded sweep (G=8, R=320, "
+          "S=2048, ploidies <= 5)", "shards": len(mesh),
+          "cards": len(set(mesh)),
+          "launches": launches, "ploidies": sorted(
+              {int(v[0]) for v in two[0].values()}),
+          "equal_to_one_device": True, "sharded_s": two_s,
+          "one_device_s": one_s})
+
+    # (c) The dry run.
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    dryrun_multichip(len(mesh), device=mesh)
+    dry_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for k in ("beam_scan", "upem_moves"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"dryrun_multichip: {k} not launched "
+                                 f"({launches})")
+    emit({"phase": "parallel", "case": "dryrun_multichip",
+          "shards": len(mesh), "launches": launches, "dryrun_s": dry_s})
+
+    # (d) The CLI as two ranks against one process.
+    sim_dir = os.path.join(tmp, "multi")
+    t0 = time.time()
+    simulate_multi(multi_configs(MULTI_CONTIGS), sim_dir)
+    emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
+          "contigs": MULTI_CONTIGS, "simulate_s": time.time() - t0})
+    out_dir = os.path.join(tmp, "multi_out")
+    runs = {}
+    for nproc in (1, 2):
+        wall, ranks = run_ranks(sim_dir, out_dir, nproc)
+        for k, rank in enumerate(ranks):
+            for kernel in ("beam_scan", "upem_moves"):
+                if rank["launches"].get(kernel, 0) <= 0:
+                    raise AssertionError(f"rank {k} of {nproc} launched "
+                                         f"no {kernel}: {rank}")
+        kept = f"{out_dir}_{nproc}"
+        shutil.move(out_dir, kept)
+        runs[nproc] = kept
+        emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
+              "processes": nproc, "wall_s": wall,
+              "rank_launches": [r["launches"] for r in ranks],
+              "rank_cli_s": [r["cli_s"] for r in ranks],
+              "rank_stages_s": [r["stages_s"] for r in ranks]})
+    files = _shared_tree(runs[1])
+    if files != _shared_tree(runs[2]):
+        raise AssertionError("two ranks wrote other files than one "
+                             "process")
+    for f in files:
+        if not filecmp.cmp(os.path.join(runs[1], f),
+                           os.path.join(runs[2], f), shallow=False):
+            raise AssertionError(f"two ranks: {f} differs from one "
+                                 "process")
+    vartigs = sum(f.endswith(".vartigs") for f in files)
+    if vartigs != MULTI_CONTIGS:
+        raise AssertionError(f"{vartigs} of {MULTI_CONTIGS} contigs phased")
+    emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
+          "byte_equal": "2 ranks vs 1 process", "files": len(files)})
+    return k1
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
@@ -864,7 +1160,7 @@ def main(argv=None) -> None:
     emit({"phase": "build", "seconds": time.time() - t0,
           "cuda_kernels_s": cuda_s, "ptxas": ptxas})
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
     alleles, weights, nreads, eps = make_workload(8, 320, 2048)
     nparts = np.array([2, 3, 4, 5, 2, 3, 4, 5], np.int32)
     k1_err, k1_sweep_s, _p_s, ups, k1_sweep_bnd = check_beam(
@@ -886,18 +1182,22 @@ def main(argv=None) -> None:
         per_dispatch, k4_later = check_dispatches(dev, recorder, moves,
                                                   sweep_later)
         k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
-        del recorder, moves, sweep_later
+        del moves, sweep_later
         parity_long3(tmp)
+        sharded = parallel_phase(dev, recorder, tmp)
+        del recorder
 
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the port loaded jax or floria_tpu: {loaded}")
     for e1, _k1, _p1, _b1, e4, _k4, _p4, _b4 in per_dispatch:
         k1_err, k4_err = max(k1_err, e1), max(k4_err, e4)
+    k1_err = max(k1_err, sharded["max_abs_err"])
     (_e1, k1_s, k1_plain_s, k1_bnd, _e4, k4_s, k4_plain_s,
      k4_bnd) = per_dispatch[0]
     emit({"phase": "k1_summary", "launches_ecoli2": launches,
           "ecoli2_p2_ms": k1_s * 1e3,
+          "ecoli2_p2_two_shards_ms": sharded["sharded_ms"],
           "ecoli2_p3_ms": per_dispatch[1][1] * 1e3,
           "sweep_ms": k1_sweep_s * 1e3,
           "bound_ecoli2_p2_ms": k1_bnd[0],

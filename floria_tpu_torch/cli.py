@@ -3,9 +3,14 @@ to the reference binary (bin/floria.rs:26-200, parse_cmd_line.rs:11-196),
 plus `--device`.
 
     python -m floria_tpu_torch.cli -b BAM -v VCF -r FASTA -o OUT \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--num-devices N] \
+        [--num-processes N --process-id K --coordinator HOST:PORT]
 
 `--device` defaults to cuda and raises when no CUDA device is present.
+Block batches shard over the local cards (`--num-devices`, default all;
+on the CPU, N shards of the one device); `--num-processes` shards the
+contigs over processes, rank 0 hosting the barrier's store at
+`--coordinator`.
 """
 
 from __future__ import annotations
@@ -16,8 +21,9 @@ import os
 import sys
 
 from . import constants
-from .device import resolve_device
 from .options import Options
+from .parallel.mesh import make_block_mesh
+from .parallel.multihost import run_multihost
 from .pipeline import run
 
 
@@ -124,8 +130,8 @@ def _reference_parser() -> argparse.ArgumentParser:
     tpu.add_argument("--process-id", type=int, default=0,
                      help="Multi-host: this process's index.")
     tpu.add_argument("--coordinator", default=None,
-                     help="Multi-host: jax.distributed coordinator "
-                          "address host:port.")
+                     help="Multi-host: coordinator address "
+                          "host:port.")
     return p
 
 
@@ -196,18 +202,16 @@ def build_parser():
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    if args.num_processes > 1:
-        raise NotImplementedError(
-            "--num-processes > 1: multi-host runs are a later ROADMAP "
-            "item (queue 1: parallel/multihost.py)")
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            "--num-devices > 1: the multi-device sweep is a later "
-            "ROADMAP item (queue 1: multi-device sweep and "
-            "parallel/mesh.py)")
+    mesh = make_block_mesh(args.num_devices, device=args.device)
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError("--num-processes > 1 needs --coordinator "
+                         "host:port (rank 0 hosts the store there)")
     options = options_from_args(args)
-    run(options, device=device)
+    if args.num_processes > 1:
+        run_multihost(options, args.num_processes, args.process_id,
+                      args.coordinator, device=mesh)
+    else:
+        run(options, device=mesh)
 
 
 if __name__ == "__main__":

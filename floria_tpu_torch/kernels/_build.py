@@ -5,7 +5,11 @@ all sources in parallel, and the objects link into one shared library
 with a plain C interface (`build/floria_tpu_torch/libfloria_tpu_torch.so`
 under the repository root), loaded with ctypes. The build runs at first
 use, never at import, and is redone whenever a source is newer than the
-library. A failed build raises.
+library. A failed build raises. Processes that start together (pytest
+workers, the ranks of a multi-process run) build once: the staleness
+check and the build run under an exclusive `fcntl.flock` on a lock file
+in the build directory, and the library is linked to a per-process name
+that `os.replace` moves into place.
 
 `-fmad=false` keeps every multiply and add separately rounded, as
 PyTorch's elementwise kernels round them, so the kernels' f64 prune
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -41,9 +46,16 @@ _lib: Optional[ctypes.CDLL] = None
 build_log: str = ""
 
 
-# Plain-integer launch counts by kernel name. A wrapper adds one where it
-# launches its kernel and nowhere else.
+# Plain-integer launch counts by kernel name. A wrapper adds one
+# (count_launch) where it launches its kernel and nowhere else; the
+# shards of a block mesh launch from several threads at once.
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -60,43 +72,50 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+def _stale(lib_path: str) -> bool:
+    if not os.path.exists(lib_path):
         return True
-    lib_t = os.path.getmtime(LIB_PATH)
+    lib_t = os.path.getmtime(lib_path)
     deps = _sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     return any(os.path.getmtime(p) > lib_t for p in deps)
 
 
-def build(force: bool = False) -> float:
-    """Compile the kernels if needed; returns the seconds spent (0.0
-    when the library was current). Raises on a failed build."""
+def build(force: bool = False, build_dir: str = BUILD_DIR) -> float:
+    """Compile the kernels into `build_dir` if needed, under the
+    directory's lock; returns the seconds spent (0.0 when the library was
+    current). Raises on a failed build."""
     global build_log
-    if not force and not _stale():
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f".tmp{os.getpid()}"
-    t0 = time.time()
-    compiles = []
-    for src in _sources():
-        obj = os.path.join(BUILD_DIR, os.path.basename(src) + tag + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-        compiles.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    logs = [proc.communicate()[1] for _cmd, _obj, proc in compiles]
-    for (cmd, _obj, proc), err in zip(compiles, logs):
-        _raise_if_failed(proc.returncode, cmd, err)
-    tmp = LIB_PATH + tag
-    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
-           *(obj for _cmd, obj, _proc in compiles)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _raise_if_failed(proc.returncode, cmd, proc.stderr)
-    os.replace(tmp, LIB_PATH)
-    for _cmd, obj, _proc in compiles:
-        os.remove(obj)
-    build_log = "".join(logs)
-    return time.time() - t0
+    os.makedirs(build_dir, exist_ok=True)
+    lib_path = os.path.join(build_dir, os.path.basename(LIB_PATH))
+    with open(os.path.join(build_dir, "libfloria_tpu_torch.lock"),
+              "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if not force and not _stale(lib_path):
+            return 0.0
+        nvcc = _nvcc()
+        tag = f".tmp{os.getpid()}"
+        t0 = time.time()
+        compiles = []
+        for src in _sources():
+            obj = os.path.join(build_dir,
+                               os.path.basename(src) + tag + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            compiles.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = [proc.communicate()[1] for _cmd, _obj, proc in compiles]
+        for (cmd, _obj, proc), err in zip(compiles, logs):
+            _raise_if_failed(proc.returncode, cmd, err)
+        tmp = lib_path + tag
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *(obj for _cmd, obj, _proc in compiles)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _raise_if_failed(proc.returncode, cmd, proc.stderr)
+        os.replace(tmp, lib_path)
+        for _cmd, obj, _proc in compiles:
+            os.remove(obj)
+        build_log = "".join(logs)
+        return time.time() - t0
 
 
 def _raise_if_failed(rc: int, cmd, stderr: str) -> None:

@@ -400,22 +400,28 @@ def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts, *,
     assign = torch.empty((G, R), dtype=rec_dt, device=dev)
     lib = _build.get_lib()
     ptr = ctypes.c_void_p
-    rc = lib.floria_beam_scan(
-        *(ptr(x.data_ptr()) for x in (
-            alleles, weights, num_reads, eps64, epsq, num_parts, rstart, lo,
-            hi, hcol, gmix, counts, wpar, wprt, mpar, mprt, scores, live,
-            assign)),
-        G, R, S, P, A, W, T1, int(bool(dedup)), int(rec_dt == torch.int16),
-        CUTOFF, ptr(torch.cuda.current_stream(dev).cuda_stream))
+    # The C side sets kernel attributes and reads the SM count of the
+    # current device: make it the tensors' card.
+    with torch.cuda.device(dev):
+        rc = lib.floria_beam_scan(
+            *(ptr(x.data_ptr()) for x in (
+                alleles, weights, num_reads, eps64, epsq, num_parts, rstart,
+                lo, hi, hcol, gmix, counts, wpar, wprt, mpar, mprt, scores,
+                live, assign)),
+            G, R, S, P, A, W, T1, int(bool(dedup)),
+            int(rec_dt == torch.int16), CUTOFF,
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(rc, "beam_scan")
-    _build.LAUNCHES["beam_scan"] += 1
+    _build.count_launch("beam_scan")
     return BeamResult(wpar, wprt, mpar, mprt, scores, live.bool()), assign
 
 
-def cluster_width(G: int) -> int:
-    """CTAs per instance K1 launches for a batch of G instances (1 when
-    G fills the card)."""
-    return int(_build.get_lib().floria_beam_cluster(G))
+def cluster_width(G: int, device) -> int:
+    """CTAs per instance K1 launches on `device` (a card) for a batch of
+    G instances (1 when G fills the card)."""
+    lib = _build.get_lib()
+    with torch.cuda.device(device):
+        return int(lib.floria_beam_cluster(G))
 
 
 def _inputs(alleles, weights, num_reads, epsilon, num_parts, device):

@@ -174,13 +174,14 @@ def nw_best_cuda(q_packed, si, nal, ref_tab, al_tab, a_max: int,
     best = torch.empty(N, dtype=torch.int8, device=dev)
     lib = _build.get_lib()
     ptr = ctypes.c_void_p
-    rc = lib.floria_nw_best(
-        *(ptr(x.data_ptr()) for x in (q_packed, si, nal, ref_tab, al_tab,
-                                      best)),
-        ptr(None if scores is None else scores.data_ptr()),
-        N, A, a_max, ptr(torch.cuda.current_stream(dev).cuda_stream))
+    with torch.cuda.device(dev):
+        rc = lib.floria_nw_best(
+            *(ptr(x.data_ptr()) for x in (q_packed, si, nal, ref_tab,
+                                          al_tab, best)),
+            ptr(None if scores is None else scores.data_ptr()),
+            N, A, a_max, ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(rc, "nw_best")
-    _build.LAUNCHES["nw_best"] += 1
+    _build.count_launch("nw_best")
     return best
 
 

@@ -198,13 +198,17 @@ def apply_moves_cuda(assign, diff, num_reads) -> torch.Tensor:
         smem = head
     lib = _build.get_lib()
     ptr = ctypes.c_void_p
-    rc = lib.floria_upem_moves(
-        *(ptr(x.data_ptr()) for x in (assign, diff, num_reads, proposal)),
-        ptr(None if scratch is None else scratch.data_ptr()), work,
-        G, R, P, cap, head, smem,
-        ptr(torch.cuda.current_stream(dev).cuda_stream))
+    # The C side sets the kernel's shared-memory attribute on the current
+    # device: make it the tensors' card.
+    with torch.cuda.device(dev):
+        rc = lib.floria_upem_moves(
+            *(ptr(x.data_ptr()) for x in (assign, diff, num_reads,
+                                          proposal)),
+            ptr(None if scratch is None else scratch.data_ptr()), work,
+            G, R, P, cap, head, smem,
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(rc, "upem_moves")
-    _build.LAUNCHES["upem_moves"] += 1
+    _build.count_launch("upem_moves")
     return proposal
 
 

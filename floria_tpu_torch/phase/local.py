@@ -2,12 +2,13 @@
 
 Port of floria_tpu/phase/local.py's main path (phase_contigs_blocks ->
 adaptive_sweep -> _sweep_launch/_sweep_pull). Every (block, ploidy)
-instance of a contig group runs as shape-bucketed batches on one
-device; each sweep level is one chain per bucket: gather -> weights ->
-beam scan + traceback (K1) -> UPEM hill-climb (K4) -> unit-weight MEC
-stats. The stopping rules replay on the host, level by level, so the
-chosen ploidies and partitions equal the reference's sequential early
-exit (graph_processing.rs:198-252).
+instance of a contig group runs as shape-bucketed batches on one device,
+or split over the shards of a block mesh (parallel/mesh.py); each sweep
+level is one chain per bucket: gather -> weights -> beam scan +
+traceback (K1) -> UPEM hill-climb (K4) -> unit-weight MEC stats. The
+stopping rules replay on the host, level by level, so the chosen
+ploidies and partitions equal the reference's sequential early exit
+(graph_processing.rs:198-252).
 
 The pure helpers below are copies of the reference's (which cannot be
 imported: its module pulls in jax).
@@ -30,6 +31,7 @@ from ..kernels import beam as beam_kernel
 from ..kernels.blocktensor import BlockTensor, pack_block, round_up
 from ..kernels.upem_batch import _eval_mec, upem_optimize_device
 from ..options import Options
+from ..parallel.mesh import make_block_mesh, run_on_shards, shard_bounds
 from .blocks import (find_reads_in_interval, get_range_with_lengths,
                      interval_bounds)
 
@@ -195,12 +197,20 @@ def adaptive_sweep(blocks, options: Options,
     walks level by level, so decisions and outputs equal the sequential
     schedule's.
 
+    `device` is a device or a block mesh (parallel/mesh.py
+    make_block_mesh, which also reads options.num_devices). Each device
+    of the mesh holds its own BlockDeviceCache (`cache`, when given, is
+    the one of its device); shards on one device share it, as it is only
+    read.
+
     Returns ({key: (best_ploidy, assignment)}, {key: mec_vector},
     {key: expected_errors})."""
     sweep_t = time.time()
-    dev = resolve_device(device)
-    if cache is None:
-        cache = BlockDeviceCache(blocks, device=dev)
+    mesh = make_block_mesh(options.num_devices, device=device)
+    caches = {} if cache is None else {cache.device: cache}
+    for dev in mesh:
+        if dev not in caches:
+            caches[dev] = BlockDeviceCache(blocks, device=dev)
     max_p = options.max_ploidy
     mec_vec = {key: np.zeros(max_p) for key, _bt in blocks}
     exp_vec = {key: np.zeros(max_p) for key, _bt in blocks}
@@ -215,7 +225,7 @@ def adaptive_sweep(blocks, options: Options,
         if not active:
             break
         lvl_t = time.time()
-        pending = _sweep_launch(active, options, cache, [entry])
+        pending = _sweep_launch(active, options, mesh, caches, [entry])
         levels = entry if isinstance(entry, tuple) else (entry,)
         launch_s = time.time() - lvl_t
         refined_p, stats_p = _sweep_pull(pending)
@@ -337,46 +347,69 @@ def _sweep_chain(cache: BlockDeviceCache, key, ids, nreads, eps,
     return best, mec
 
 
-def _sweep_launch(blocks, options: Options, cache: BlockDeviceCache,
+def _sweep_launch(blocks, options: Options, mesh: List[torch.device],
+                  caches: Dict[torch.device, BlockDeviceCache],
                   ploidies) -> list:
     """Run one wave of chained beam -> UPEM dispatches for every
     (block, ploidy in ploidies) instance, per shape bucket, in chunks of
-    the dispatch cap. Results stay on the device until _sweep_pull."""
+    the dispatch cap. Results stay on the device until _sweep_pull.
+
+    Over a mesh of more than one shard, each dispatch's batch splits into
+    len(mesh) contiguous shards (parallel/mesh.py shard_bounds) and each
+    shard's whole chain runs on its device, all shards' chains on their
+    own host threads at once. The reference pulls the sharded beam to the
+    host and runs UPEM on the default device; instances are independent,
+    so the outputs are the same (tests/test_torch_parallel.py)."""
     check_no_tf32()
     groups: Dict[Tuple[int, int], List[Tuple[object, BlockTensor]]] = {}
     for j, bt in blocks:
         key = (_bucket_reads(bt.num_reads), _bucket_sites(bt.num_sites))
         groups.setdefault(key, []).append((j, bt))
     cap_cells = _sweep_cap_cells(options)
-    items = []
+    if len(mesh) > 1:
+        # The fused (1, 2) wave is single-device only, as in the
+        # reference: over a mesh levels 1 and 2 are separate dispatches
+        # of one wave.
+        ploidies = [q for p in ploidies
+                    for q in (p if isinstance(p, tuple) else (p,))]
+    jobs: List[list] = [[] for _ in mesh]
     for ploidy in ploidies:
         for key, members in groups.items():
             g_cap = max(1, cap_cells // (key[0] * key[1]))
             for lo in range(0, len(members), g_cap):
-                items.append((ploidy, key, members[lo:lo + g_cap]))
+                chunk = members[lo:lo + g_cap]
+                # Sliding compute window (same policy as the reference),
+                # one per dispatch: only for a >= 4x shrink of the site
+                # axis.
+                window = round_up(
+                    max(bt.max_read_span() for _j, bt in chunk) + 128, 256)
+                if window * 4 > key[1]:
+                    window = 0
+                for k, (a, b) in enumerate(shard_bounds(len(chunk),
+                                                        len(mesh))):
+                    if b > a:
+                        jobs[k].append((ploidy, key, chunk[a:b], window))
+
+    def run_shard(k):
+        cache = caches[mesh[k]]
+        pending = []
+        for ploidy, key, members, window in jobs[k]:
+            nreads = np.array([bt.num_reads for _j, bt in members],
+                              dtype=np.int32)
+            eps = np.full(len(members), options.epsilon, dtype=np.float32)
+            fused = ploidy == (1, 2)
+            best, mec = _sweep_chain(
+                cache, key, [j for j, _bt in members], nreads, eps,
+                2 if fused else ploidy, options.max_number_solns, window,
+                cache.amax[key], fused12=fused)
+            pending.append((members, ploidy, best, mec))
+        return pending
 
     launch_t = time.time()
-    pending = []
-    for ploidy, (r_pad, s_pad), members in items:
-        nreads = np.array([bt.num_reads for _j, bt in members],
-                          dtype=np.int32)
-        max_span = max(bt.max_read_span() for _j, bt in members)
-        eps = np.full(len(members), options.epsilon, dtype=np.float32)
-        ids = [j for j, _bt in members]
-        amax = cache.amax[(r_pad, s_pad)]
-        # Sliding compute window (same policy as the reference): only
-        # for a >= 4x shrink of the site axis.
-        window = round_up(max_span + 128, 256)
-        if window * 4 > s_pad:
-            window = 0
-        fused = ploidy == (1, 2)
-        best, mec = _sweep_chain(
-            cache, (r_pad, s_pad), ids, nreads, eps,
-            2 if fused else ploidy, options.max_number_solns, window,
-            amax, fused12=fused)
-        pending.append((members, ploidy, best, mec))
+    shards = run_on_shards(run_shard,
+                           [k for k in range(len(mesh)) if jobs[k]])
     timing.add("phase.launch", time.time() - launch_t)
-    return pending
+    return [p for pending in shards for p in pending]
 
 
 def _sweep_pull(pending: list):

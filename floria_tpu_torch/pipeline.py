@@ -22,7 +22,6 @@ import time
 from typing import Dict, List, Optional
 
 from . import fragops, threads, timing
-from .device import resolve_device
 from .frag import Frag, sort_and_renumber
 from .graph.edges import update_hap_graph
 from .graph.flow import solve_lp_graph
@@ -35,6 +34,7 @@ from .ingest.fragments import collect_contig_records, finalize_frags
 from .kernels.realign import RealignPool, flush_pool
 from .options import Options
 from .out.writers import write_outputs
+from .parallel.mesh import make_block_mesh
 from .phase.local import LocalBlockResult, phase_contigs_blocks
 from .post.finalize import process_reads_for_final_parts
 from .post.snpless import frags_in_snpless_gaps
@@ -80,14 +80,12 @@ def _warm_imports() -> None:
 
 
 def run(options: Options, *, device) -> None:
-    """Phase every eligible contig of options.bam_file on `device`."""
-    dev = resolve_device(device)
+    """Phase every eligible contig of options.bam_file on `device`, a
+    device or a block mesh (parallel/mesh.py make_block_mesh, which also
+    reads options.num_devices). Block phasing shards over the mesh;
+    realignment runs on its first device."""
+    mesh = make_block_mesh(options.num_devices, device=device)
     options.validate()
-    if options.num_devices is not None and options.num_devices > 1:
-        raise NotImplementedError(
-            "floria_tpu_torch runs on one device; the multi-device sweep "
-            "is a later ROADMAP item (queue 1: multi-device sweep and "
-            "parallel/mesh.py)")
     threads.set_num_threads(options.num_threads)
     timing.reset()
     _warm_imports()
@@ -130,7 +128,7 @@ def run(options: Options, *, device) -> None:
             group = eligible[lo:lo + batch]
             try:
                 prev_join = _run_group(group, main_bam, short_bam,
-                                       vcf_profile, fasta, options, dev,
+                                       vcf_profile, fasta, options, mesh,
                                        prev_join=prev_join,
                                        async_join=pipelined)
             except Exception:
@@ -144,7 +142,7 @@ def run(options: Options, *, device) -> None:
                 for contig in group:
                     try:
                         _run_group([contig], main_bam, short_bam,
-                                   vcf_profile, fasta, options, dev)
+                                   vcf_profile, fasta, options, mesh)
                     except Exception:
                         log.exception(
                             "Contig %s failed; --keep-going continues.",
@@ -166,11 +164,12 @@ def run(options: Options, *, device) -> None:
 
 def _run_group(group: List[str], main_bam, short_bam,
                vcf_profile: VcfProfile, fasta: Optional[FastaFile],
-               options: Options, device, prev_join=None,
+               options: Options, mesh, prev_join=None,
                async_join: bool = False):
     """Process one contig group; with async_join the join/outputs run on
     a worker thread and a wait-callable is returned."""
     t0 = time.time()
+    device = mesh[0]
     pool = RealignPool() if fasta is not None else None
     collected = []
     for contig in group:
@@ -240,7 +239,7 @@ def _run_group(group: List[str], main_bam, short_bam,
     phasing_t = time.time()
     results_by_contig = phase_contigs_blocks(
         [(st.contig, st.final_frags, st.cv.genome_pos, st.debug_dir)
-         for st in states], options, device=device)
+         for st in states], options, device=mesh)
     log.info("Phasing time taken %.2fs", time.time() - phasing_t)
     timing.add("phasing", time.time() - phasing_t)
 

@@ -12,19 +12,23 @@ from __future__ import annotations
 import struct
 from typing import List, Sequence, Tuple
 
+import numpy as np
+
 from ..ingest import bgzf
 from ..ingest.bam import SEQ_CODES
 
 _CODE_OF = {c: i for i, c in enumerate(SEQ_CODES)}
 _OP_OF = {c: i for i, c in enumerate("MIDNSHP=X")}
+# 4-bit code of every byte value (case-insensitive, 15 = N otherwise).
+_CODE_TABLE = np.array([_CODE_OF.get(chr(b).upper(), 15)
+                        for b in range(256)], dtype=np.uint8)
 
 
 def _pack_seq(seq: bytes) -> bytes:
-    codes = [_CODE_OF.get(chr(b).upper(), 15) for b in seq]
+    codes = _CODE_TABLE[np.frombuffer(bytes(seq), dtype=np.uint8)]
     if len(codes) % 2:
-        codes.append(0)
-    return bytes((codes[i] << 4) | codes[i + 1]
-                 for i in range(0, len(codes), 2))
+        codes = np.append(codes, np.uint8(0))
+    return ((codes[0::2] << 4) | codes[1::2]).tobytes()
 
 
 def encode_record(qname: str, flag: int, tid: int, pos: int, mapq: int,

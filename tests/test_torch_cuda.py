@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 same card, bitwise: K1 (beam scan + traceback), K4 (the UPEM move
 function: candidates, sort and walk) and K5 (realignment NW, two alleles
-per DP).
+per DP); and the sharded beam and sweep (parallel/mesh.py) against the
+unsharded run, two shards on one card, and on two cards where a machine
+has them.
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -9,15 +11,20 @@ without one (decided inside the fixture). On a machine with a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import dedup_case, nw_case, windowed_case
+from floria_tpu_torch import entry
 from floria_tpu_torch.kernels import _build
 from floria_tpu_torch.kernels import beam as TB
 from floria_tpu_torch.kernels import realign as TR
 from floria_tpu_torch.kernels import upem_batch as TU
+from floria_tpu_torch.parallel import mesh as TM
+from floria_tpu_torch.phase import local as TL
 from test_beam_pallas import _make
 from test_torch_upem import moves_case
 
@@ -72,7 +79,7 @@ def _random_case(G, R, S, P, seed, nparts, A=2):
 ])
 def test_beam_kernel_matches_plain(dev, G, R, S, P, W, seed, nparts, A):
     # G < 66: every case runs K1's thread-block-cluster path.
-    assert TB.cluster_width(G) > 1
+    assert TB.cluster_width(G, dev) > 1
     got, asg, ref, ref_asg = _kernel_vs_plain(
         dev, *_random_case(G, R, S, P, seed, nparts, A), P, W, A=A)
     _assert_same(got, asg, ref, ref_asg)
@@ -84,7 +91,7 @@ def test_beam_kernel_cluster_widths_match_plain(dev, G, A, width):
     G = 40 and 20 take clusters of two and four. Mixed parts, padded
     reads, two to four alleles."""
     nparts = [2 + g % 4 for g in range(G)]
-    assert TB.cluster_width(G) == width
+    assert TB.cluster_width(G, dev) == width
     got, asg, ref, ref_asg = _kernel_vs_plain(
         dev, *_random_case(G, 48, 256, 5, 7 + G, nparts, A), 5, 10, A=A)
     _assert_same(got, asg, ref, ref_asg)
@@ -263,3 +270,62 @@ def test_nw_wrapper_counts_launches_and_checks_inputs(dev):
     got = TR.nw_best(q, si, nal, ref_tab, al_tab, 2)
     assert _build.LAUNCHES["nw_best"] == 1
     assert got.device.type == "cuda" and got.dtype == torch.int8
+
+
+def _beam_sharded_vs_unsharded(mesh, G=70):
+    """K1 through beam_search_sharded over `mesh` against one unsharded
+    K1 call on the first card: bitwise, one launch per shard."""
+    nparts = [2 + g % 4 for g in range(G)]
+    args = _random_case(G, 48, 256, 5, 31, nparts)
+    ref, ref_asg = TB.beam_search_traceback(*args, 5, 10, max_alleles=2,
+                                            device=mesh[0])
+    _build.LAUNCHES.clear()
+    got, asg = TM.beam_search_sharded(mesh, *args, 5, 10, max_alleles=2)
+    assert _build.LAUNCHES["beam_scan"] == len(mesh)
+    for name, a, b in zip(ref._fields, ref, got):
+        assert a.cpu().numpy().dtype == b.dtype, name
+        assert np.array_equal(a.cpu().numpy(), b), name
+    assert np.array_equal(ref_asg.cpu().numpy(), asg)
+
+
+def _sweep_sharded_vs_unsharded(mesh):
+    from floria_tpu_torch.entry import _synth_blocks
+    from floria_tpu_torch.options import Options
+    from test_torch_sweep import _assert_sweeps_equal
+
+    # Rows cut to each block's live reads, as pack_block lays them out.
+    blocks = [(j, dataclasses.replace(
+        bt, alleles=bt.alleles[:bt.num_reads],
+        weights=bt.weights[:bt.num_reads], quals=bt.quals[:bt.num_reads],
+        frag_ids=bt.frag_ids[:bt.num_reads]))
+        for j, bt in _synth_blocks(12, 96, 512, 4, seed=3)]
+    opts = Options(epsilon=0.02, max_ploidy=4)
+    want = TL.adaptive_sweep(blocks, opts, device=mesh[0])
+    _build.LAUNCHES.clear()
+    got = TL.adaptive_sweep(blocks, opts, device=mesh)
+    assert _build.LAUNCHES["beam_scan"] >= len(mesh)
+    assert _build.LAUNCHES["upem_moves"] >= len(mesh)
+    _assert_sweeps_equal(want, got)
+
+
+def test_sharded_beam_on_one_card_matches_unsharded(dev):
+    """Two shards on one card (clusters of two CTAs each, against one
+    CTA per instance unsharded)."""
+    _beam_sharded_vs_unsharded([torch.device("cuda", 0)] * 2)
+
+
+def test_sharded_sweep_on_one_card_matches_unsharded(dev):
+    _sweep_sharded_vs_unsharded([torch.device("cuda", 0)] * 2)
+
+
+def test_shards_on_two_cards_match_one_card(dev):
+    """Guards the wrappers' device switch: K1 and K4 set kernel
+    attributes and K1 reads the SM count of the current device, so a
+    shard on cuda:1 must make cuda:1 current. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    mesh = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert TB.cluster_width(8, mesh[1]) == TB.cluster_width(8, mesh[0])
+    _beam_sharded_vs_unsharded(mesh)
+    _sweep_sharded_vs_unsharded(mesh)
+    entry.dryrun_multichip(2, device=mesh)

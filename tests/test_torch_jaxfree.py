@@ -2,9 +2,9 @@
 chip_smoke.py imports jax or the JAX package `floria_tpu` (checked on
 the sources, at any nesting level, and at run time, where the port's CLI
 runs end to end in a process that refuses both), its copied host
-modules read and write what the reference's do, its native library
-builds once under concurrent processes, and `--device cuda` without a
-card raises."""
+modules read and write what the reference's do, its native library and
+its CUDA kernels build once under concurrent processes, `--device cuda`
+without a card raises, and the multi-device flags reach the mesh."""
 
 import ast
 import dataclasses
@@ -259,14 +259,90 @@ def test_cuda_device_without_card_raises(tmp_path):
                   "-o", str(tmp_path / "out"), "--device", "cuda"])
 
 
-@pytest.mark.parametrize("flag", [["--num-processes", "2"],
-                                  ["--num-devices", "2"]])
-def test_multi_device_flags_raise(flag, tmp_path):
+@pytest.mark.parametrize("flag,want", [([], 2), (["--num-devices", "5"], 2),
+                                       (["--num-devices", "1"], 1)])
+def test_num_devices_clamps_to_the_cards(flag, want, tmp_path,
+                                         monkeypatch):
+    """--num-devices above the card count clamps to the cards, as the
+    JAX package clamps to its local devices; the default is all of
+    them. (Two cards faked: the run itself is replaced.)"""
     from floria_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(cli, "run", lambda options, *, device:
+                        seen.append(device))
+    cli.main(["-b", "x.bam", "-v", "x.vcf", "-r", "x.fa", "-e", "0.02",
+              "-l", "3000", "-o", str(tmp_path / "out"), *flag])
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert seen == [cards if want == 2 else [torch.device("cuda")]]
+
+
+def test_num_processes_without_coordinator_raises(tmp_path):
+    from floria_tpu_torch import cli
+
+    with pytest.raises(ValueError, match="--coordinator"):
         cli.main(["-b", "x.bam", "-v", "x.vcf", "-r", "x.fa",
-                  "-o", str(tmp_path / "out"), "--device", "cpu", *flag])
+                  "-o", str(tmp_path / "out"), "--device", "cpu",
+                  "--num-processes", "2"])
+    assert not (tmp_path / "out").exists()
+
+
+_STUB_NVCC = r"""#!/bin/sh
+# Stands in for nvcc: logs each call, waits, writes its -o file.
+out=""
+prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  prev="$a"
+done
+case " $* " in
+  *" -shared "*) echo "link $$" >> "$NVCC_LOG" ;;
+  *) echo "compile $$" >> "$NVCC_LOG" ;;
+esac
+sleep 0.5
+echo stub > "$out"
+"""
+
+_CUDA_BUILD_CHILD = r"""
+import sys
+sys.path.insert(0, {repo!r})
+from floria_tpu_torch.kernels import _build
+print("BUILT", _build.build(build_dir=sys.argv[1]) > 0)
+"""
+
+
+def test_cuda_build_runs_once_under_two_processes(tmp_path):
+    """Two processes (the ranks of a multi-process run) find the kernel
+    library missing at once: one compiles every source and links, the
+    other waits on the lock and finds it current."""
+    from floria_tpu_torch.kernels import _build
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(_STUB_NVCC)
+    nvcc.chmod(0o755)
+    log = tmp_path / "nvcc.log"
+    build = tmp_path / "build"
+    env = dict(os.environ, NVCC_LOG=str(log),
+               PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    code = _CUDA_BUILD_CHILD.format(repo=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(build)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (_out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    assert sorted(out.strip() for out, _err in outs) == ["BUILT False",
+                                                          "BUILT True"]
+    calls = log.read_text().split()[::2]
+    assert calls.count("compile") == len(_build._sources()) >= 3
+    assert calls.count("link") == 1
+    assert sorted(os.listdir(build)) == ["libfloria_tpu_torch.lock",
+                                        "libfloria_tpu_torch.so"]
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
@@ -300,3 +376,45 @@ def test_chip_smoke_sweep_workload_is_bench_workload():
     for got, want in zip(chip_smoke.make_workload(3, 40, 256, seed=4),
                          bench.make_workload(3, 40, 256, seed=4)):
         assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_chip_smoke_multi_community_is_multihost_bench_config(
+        tmp_path, monkeypatch):
+    """The parallel phase's community is scripts/multihost_bench.py's
+    `build_sim` (BASELINE.json config #5), contig for contig."""
+    import chip_smoke
+    from floria_tpu.sim import simulate as ref_sim
+
+    monkeypatch.syspath_prepend(os.path.join(REPO, "scripts"))
+    import multihost_bench
+
+    seen = []
+    monkeypatch.setattr(ref_sim, "simulate_multi",
+                        lambda cfgs, base: seen.extend(cfgs))
+    multihost_bench.build_sim(7, str(tmp_path))
+    assert [dataclasses.asdict(c) for c in chip_smoke.multi_configs(7)] \
+        == [dataclasses.asdict(c) for c in seen]
+
+
+def test_simulate_multi_and_sequence_packing_match_the_reference(
+        tmp_path):
+    """The port's simulate_multi (with its vectorized BAM sequence
+    packing) writes the reference's bytes."""
+    import chip_smoke
+    from floria_tpu.sim import bamwrite as ref_bw
+    from floria_tpu.sim import simulate as ref_sim
+    from floria_tpu_torch.sim import bamwrite as port_bw
+    from floria_tpu_torch.sim import simulate as port_sim
+
+    rng = np.random.default_rng(0)
+    for n in range(40):
+        for alphabet in (range(256), b"ACGTNacgtn=MRSVWYHKDB"):
+            seq = bytes(rng.choice(list(alphabet), n).astype(np.uint8))
+            assert port_bw._pack_seq(seq) == ref_bw._pack_seq(seq)
+    cfgs = chip_smoke.multi_configs(2)
+    ref_sim.simulate_multi([ref_sim.SimConfig(**dataclasses.asdict(c))
+                            for c in cfgs], str(tmp_path / "ref"))
+    port_sim.simulate_multi(cfgs, str(tmp_path / "port"))
+    for name in ("sim.bam", "sim.vcf", "sim.fa"):
+        assert (tmp_path / "ref" / name).read_bytes() == \
+            (tmp_path / "port" / name).read_bytes(), name
