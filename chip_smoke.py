@@ -39,6 +39,22 @@ each; any failure raises (exit code != 0):
                 windows at 4 alleles;
   7. parity   - the port's CLI on the `long3` community must write the
                 oracle pipeline's bytes (tests/data/long3_oracle.json);
+ 7b. north_star - the port's CLI on the round's 12 small configs (the
+                JAX package's oracle configs long2, long3, paired2, supp2,
+                hybrid and its fuzz seeds 0-5 and 19): the simulated
+                inputs and every output file held to the JAX CLI's
+                sha256 in tests/data/north_star_golden.json; seconds and
+                kernel launches per config;
+ 7c. config4  - BASELINE.json config #4, the 5-strain community (300 kbp,
+                9,000 SNPs, `-p 6 -s 3`) at full size: two CLI runs in
+                this process, both held to the JAX CLI's hashes; stage
+                times, launches, peak device memory, the second run's
+                beam dispatches per sweep level and K4 calls that applied
+                a move; the outputs' vartig accuracy and haploset purity
+                against the simulated truth, equal to the golden's;
+ 7d. tools    - vartig-dump, haplotagging (HAPQ >= 0) and a frags.txt
+                round trip of get_frags_from_bam's fragments on long3,
+                each output held to the JAX functions' hash;
   8. parallel - the parallel layer (floria_tpu_torch/parallel/), two
                 shards on the one card (one shard per card where the
                 machine has more): (a) K1 through beam_search_sharded (the
@@ -81,6 +97,8 @@ the nvidia-smi line and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import filecmp
 import hashlib
 import json
@@ -102,6 +120,12 @@ SCALAR_OPS_PER_S = 67e12
 # every time.
 CARD = None
 GOLDEN_LONG3 = os.path.join(REPO, "tests", "data", "long3_oracle.json")
+# The JAX CLI's output hashes on the round's configs and the JAX tools'
+# on long3 (written by tests/test_torch_oracle_configs.py); OUT_MARK and
+# SIM_MARK stand there for the run's -o and its inputs' directory.
+GOLDEN_NORTH_STAR = os.path.join(REPO, "tests", "data",
+                                 "north_star_golden.json")
+OUT_MARK, SIM_MARK = "<out>", "<sim>"
 # bench.py's `ecoli2` e2e community (bench.py:134).
 ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
               coverage_per_strain=50.0, read_length=9_000,
@@ -859,6 +883,289 @@ def parity_long3(tmp):
           "byte_equal": sorted(golden["outputs"])})
 
 
+def load_north_star():
+    with open(GOLDEN_NORTH_STAR) as fh:
+        return json.load(fh)
+
+
+def _sha256(path, out_dir=None):
+    """sha256 of a file's bytes, with `out_dir` (the run's -o, which the
+    outputs embed) written as OUT_MARK."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if out_dir is not None:
+        data = data.replace(out_dir.encode(), OUT_MARK.encode())
+    return hashlib.sha256(data).hexdigest()
+
+
+def output_sha256(root, out_dir):
+    """{file: sha256} of the output tree at `root` (cmd.log left out),
+    written by a run whose -o was `out_dir`."""
+    return {f: _sha256(os.path.join(root, f), out_dir) for f in _tree(root)}
+
+
+def simulate_case(entry, sim_dir):
+    """Simulates a golden entry's community into `sim_dir`, holds its
+    inputs to the entry's hashes and returns its SimTruth."""
+    from floria_tpu_torch.sim.simulate import (SimConfig, simulate,
+                                               simulate_hybrid)
+
+    cfg = SimConfig(**entry["sim_config"])
+    short = entry.get("short_coverage_per_strain")
+    truth = (simulate(cfg, sim_dir) if short is None else simulate_hybrid(
+        cfg, sim_dir, short_coverage_per_strain=short))
+    for name, want in entry["inputs_sha256"].items():
+        if _sha256(os.path.join(sim_dir, name)) != want:
+            raise AssertionError(f"simulated {name} of {cfg} differs from "
+                                 "the golden record's input")
+    return truth
+
+
+def case_args(entry, sim_dir):
+    """The entry's CLI flags (besides -b/-v/-r/-o) for inputs in
+    `sim_dir`."""
+    return [a.replace(SIM_MARK, sim_dir) for a in entry["cli_args"]]
+
+
+def assert_golden_outputs(name, out_dir, want):
+    """Raises unless the output tree of a run at `out_dir` hashes to
+    `want`, file by file."""
+    got = output_sha256(out_dir, out_dir)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{name}: output files {sorted(got)}, the JAX "
+                             f"CLI wrote {sorted(want)}")
+    for f, h in sorted(want.items()):
+        if got[f] != h:
+            raise AssertionError(f"{name}: {f} differs from the JAX CLI's")
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_golden_case(name, entry, tmp, device="cuda:0"):
+    """The port's CLI on one config of tests/data/north_star_golden.json,
+    every output file held to the JAX CLI's hash. Returns (record,
+    sim_dir, out_dir, truth)."""
+    from floria_tpu_torch.kernels import _build
+
+    sim_dir = os.path.join(tmp, name)
+    truth = simulate_case(entry, sim_dir)
+    out_dir = os.path.join(tmp, name + "_out")
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    run_cli(sim_dir, out_dir, device=device,
+            extra=case_args(entry, sim_dir))
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    assert_golden_outputs(name, out_dir, entry["outputs_sha256"])
+    rec = {"phase": "north_star", "config": name, "device": str(device),
+           "e2e_s": seconds, "launches": launches,
+           "files_equal_to_jax": len(entry["outputs_sha256"])}
+    return rec, sim_dir, out_dir, truth
+
+
+def north_star_phase(tmp, device="cuda:0"):
+    """Phase north_star: the port's CLI on the round's small configs
+    (the JAX package's oracle configs and fuzz seeds), each output held
+    to the JAX CLI's bytes. Returns {config: (sim_dir, out_dir)}."""
+    golden = load_north_star()["configs"]
+    dirs = {}
+    for name, entry in golden.items():
+        if name == "config4":
+            continue
+        rec, sim_dir, out_dir, _truth = run_golden_case(name, entry, tmp,
+                                                        device)
+        emit(rec)
+        dirs[name] = (sim_dir, out_dir)
+    return dirs
+
+
+class SweepCounter:
+    """While active, counts the sweep's beam dispatches (K1) by level
+    (the dispatch's ploidy) with their blocks, and its move-function
+    calls (K4) with those that applied at least one move. It keeps no
+    tensor and adds no device sync: each call's "moved" flag stays on
+    the device until summary()."""
+
+    def __init__(self):
+        from floria_tpu_torch.kernels import beam, upem_batch
+
+        self.beam, self.upem = beam, upem_batch
+        self.levels, self.blocks, self.moved = {}, {}, []
+
+    def __enter__(self):
+        self._beam = self.beam.beam_search_traceback
+        self._apply = self.upem.apply_moves
+
+        def beam(alleles, weights, nr, ep, nparts, P, W, **kw):
+            self.levels[P] = self.levels.get(P, 0) + 1
+            self.blocks[P] = self.blocks.get(P, 0) + int(alleles.shape[0])
+            return self._beam(alleles, weights, nr, ep, nparts, P, W, **kw)
+
+        def apply_moves(assign, diff, num_reads):
+            out = self._apply(assign, diff, num_reads)
+            self.moved.append((out != assign.to(out.dtype)).any())
+            return out
+
+        self.beam.beam_search_traceback = beam
+        self.upem.apply_moves = apply_moves
+        return self
+
+    def __exit__(self, *exc):
+        self.beam.beam_search_traceback = self._beam
+        self.upem.apply_moves = self._apply
+
+    def summary(self):
+        return {"dispatches_by_level": {str(p): n for p, n in
+                                        sorted(self.levels.items())},
+                "blocks_by_level": {str(p): n for p, n in
+                                    sorted(self.blocks.items())},
+                "highest_level": max(self.levels, default=None),
+                "move_calls": len(self.moved),
+                "move_calls_with_moves": int(torch.stack(self.moved).sum())
+                if self.moved else 0}
+
+
+def config4_phase(tmp, device="cuda:0"):
+    """Phase config4: BASELINE.json config #4, the 5-strain community
+    (300 kbp, 9,000 SNPs, `-p 6 -s 3`) at full size. The CLI runs twice
+    in this process (first, then second), both held to the JAX CLI's
+    bytes; the second run's sweep levels and K4 calls with moves are
+    counted; the outputs are scored against the simulation's truth and
+    must give the golden record's evaluation."""
+    from floria_tpu_torch import timing
+    from floria_tpu_torch.kernels import _build
+    from floria_tpu_torch.sim.evaluate import (evaluate_haplosets,
+                                               evaluate_vartigs)
+
+    entry = load_north_star()["configs"]["config4"]
+    contig = entry["sim_config"]["contig_name"]
+    sim_dir = os.path.join(tmp, "config4")
+    t0 = time.time()
+    truth = simulate_case(entry, sim_dir)
+    n_reads = len(truth.read_strains)
+    emit({"phase": "config4", "simulate_s": time.time() - t0,
+          "reads": n_reads})
+    out_dir = os.path.join(tmp, "config4_out")
+    on_card = torch.device(device).type == "cuda"
+    for label in ("first", "second"):
+        # The first run is left uninstrumented; the runs are byte-equal.
+        counter = SweepCounter()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with counter if label == "second" else contextlib.nullcontext():
+            run_cli(sim_dir, out_dir, device=device,
+                    extra=case_args(entry, sim_dir))
+        _sync(device)
+        e2e_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        assert_golden_outputs(f"config4 {label} run", out_dir,
+                              entry["outputs_sha256"])
+        rec = {"phase": "config4", "run": label, "device": str(device),
+               "e2e_s": e2e_s, "reads": n_reads,
+               "reads_per_s": n_reads / e2e_s, "launches": launches,
+               "stages_s": dict(timing.STAGE_TIMES),
+               "files_equal_to_jax": len(entry["outputs_sha256"])}
+        if on_card:
+            rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            for k in ("beam_scan", "upem_moves"):
+                if launches.get(k, 0) <= 0:
+                    raise AssertionError(f"config4 {label} run launched no "
+                                         f"{k}: {launches}")
+        if label == "second":
+            rec.update(counter.summary())
+            if on_card and rec["move_calls"] != launches["upem_moves"]:
+                raise AssertionError(f"{rec['move_calls']} move calls, "
+                                     f"{launches} launches")
+        emit(rec)
+        kept = out_dir + "_" + label
+        shutil.move(out_dir, kept)
+    cdir = os.path.join(kept, contig)
+    got = {"vartigs": dataclasses.asdict(evaluate_vartigs(
+               os.path.join(cdir, f"{contig}.vartigs"), truth)),
+           "haplosets": dataclasses.asdict(evaluate_haplosets(
+               os.path.join(cdir, f"{contig}.haplosets"), truth))}
+    emit({"phase": "config4", "evaluation": got,
+          "golden_evaluation": entry["evaluation"]})
+    if got != entry["evaluation"]:
+        raise AssertionError(f"config4 evaluation {got} differs from the "
+                             f"golden record's {entry['evaluation']}")
+    return got
+
+
+def tools_outputs(sim_dir, haplosets, contig, dest, device="cuda:0"):
+    """The port's tools on one simulated community: vartig-dump, the
+    haplotagged BAM of `haplosets` at HAPQ >= 0, and the frags.txt of the
+    contig's fragments as get_frags_from_bam returns them (realigned
+    against the FASTA on `device`), read back. Returns {output: sha256},
+    each file's bytes with its own path written as OUT_MARK; raises
+    unless the frags.txt reads back the fragments' values."""
+    from floria_tpu_torch import vartig_dump
+    from floria_tpu_torch.ingest.bam import BamFile
+    from floria_tpu_torch.ingest.fasta import FastaFile
+    from floria_tpu_torch.ingest.fragfile import (read_frags_file,
+                                                  write_frags_file)
+    from floria_tpu_torch.ingest.fragments import get_frags_from_bam
+    from floria_tpu_torch.ingest.vcf import read_vcf
+    from floria_tpu_torch.options import Options
+    from floria_tpu_torch.out.haplotag import (haplotag_records,
+                                               read_haploset,
+                                               write_bam_records)
+    from floria_tpu_torch.pipeline import open_bam
+
+    bam, vcf = (os.path.join(sim_dir, f) for f in ("sim.bam", "sim.vcf"))
+    os.makedirs(dest, exist_ok=True)
+    paths = {k: os.path.join(dest, k) for k in
+             ("vartig_dump.txt", "haplotagged.bam", "frags.txt")}
+    vartig_dump.main(["-b", bam, "-v", vcf, "-o", paths["vartig_dump.txt"]])
+
+    name_to_part = {}
+    for i, names in read_haploset(haplosets, 0).items():
+        for n in names:
+            name_to_part[n] = i
+    template = BamFile(bam)
+    write_bam_records(paths["haplotagged.bam"], template,
+                      haplotag_records(template, contig, name_to_part))
+
+    cv = read_vcf(vcf, [contig]).get(contig)
+    ref_seq = FastaFile(os.path.join(sim_dir, "sim.fa")).fetch(contig)
+    frags, _ = get_frags_from_bam(open_bam(bam), None, cv, Options(),
+                                  ref_seq, contig, device=device)
+    write_frags_file(frags, paths["frags.txt"])
+    back = read_frags_file(paths["frags.txt"])["frag_contig"]
+    if len(back) != len(frags) or any(
+            g.seq_dict != dict(f.seq_dict) or g.qual_dict != dict(f.qual_dict)
+            for f, g in zip(frags, back)):
+        raise AssertionError("frags.txt does not read back the fragments' "
+                             "alleles and quals")
+    out = {k: _sha256(p, p) for k, p in paths.items()}
+    out["tagged_reads"] = len(name_to_part)
+    out["frags"] = len(frags)
+    return out
+
+
+def tools_phase(tmp, sim_dir, out_dir, device="cuda:0"):
+    """Phase tools: vartig-dump, haplotagging and the frags.txt round
+    trip on long3 (the inputs and outputs of phase north_star), each
+    output held to the JAX functions' hash in the golden record."""
+    golden = load_north_star()
+    want = golden["tools"]
+    contig = golden["configs"]["long3"]["sim_config"]["contig_name"]
+    got = tools_outputs(sim_dir, os.path.join(
+        out_dir, contig, f"{contig}.haplosets"), contig,
+        os.path.join(tmp, "tools"), device)
+    if got != want:
+        raise AssertionError(f"tools: {got} differs from the JAX "
+                             f"functions' {want}")
+    emit({"phase": "tools", "config": "long3", "outputs_equal_to_jax":
+          sorted(got)})
+
+
 def workload_blocks(G=8, R=320, S=2048):
     """make_workload's instances as the sweep's (key, BlockTensor)
     blocks. The sweep takes phred quals, so each weight becomes its qual
@@ -1184,6 +1491,9 @@ def main(argv=None) -> None:
         k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
         del moves, sweep_later
         parity_long3(tmp)
+        north_star = north_star_phase(tmp)
+        config4_phase(tmp)
+        tools_phase(tmp, *north_star["long3"])
         sharded = parallel_phase(dev, recorder, tmp)
         del recorder
 

@@ -171,6 +171,20 @@ def _merge_into(dst: Frag, src: Frag, pair_index: Optional[int]) -> None:
         dst.snp_pos_to_seq_pos.update(src.snp_pos_to_seq_pos)
 
 
+def get_frags_from_bam(main_bam, short_bam, contig_vcf: ContigVcf,
+                       options: Options, ref_seq: Optional[bytes],
+                       contig: str, *, device
+                       ) -> Tuple[List[Frag], List[Frag]]:
+    """Extract, realign, and merge fragments for one contig
+    (file_reader.rs:343-462). Returns (frags with SNPs, frags without).
+    With a `ref_seq` the realignment flushes on `device`; without one no
+    device is touched."""
+    id_to_frags = collect_contig_records(main_bam, short_bam, contig_vcf,
+                                         options, ref_seq, contig,
+                                         device=device)
+    return finalize_frags(id_to_frags, contig_vcf, options)
+
+
 def collect_contig_records(main_bam, short_bam, contig_vcf: ContigVcf,
                            options: Options, ref_seq: Optional[bytes],
                            contig: str, realign_pool=None, *, device

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 same card, bitwise: K1 (beam scan + traceback), K4 (the UPEM move
 function: candidates, sort and walk) and K5 (realignment NW, two alleles
-per DP); and the sharded beam and sweep (parallel/mesh.py) against the
+per DP); the sharded beam and sweep (parallel/mesh.py) against the
 unsharded run, two shards on one card, and on two cards where a machine
-has them.
+has them; and the port's CLI on the card against the JAX package's
+pipeline on JAX's CPU backend, in one process, on the round's small
+configs.
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -26,6 +28,7 @@ from floria_tpu_torch.kernels import upem_batch as TU
 from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.phase import local as TL
 from test_beam_pallas import _make
+from test_torch_oracle_configs import SMALL, run_both
 from test_torch_upem import moves_case
 
 pytestmark = pytest.mark.cuda
@@ -329,3 +332,15 @@ def test_shards_on_two_cards_match_one_card(dev):
     _beam_sharded_vs_unsharded(mesh)
     _sweep_sharded_vs_unsharded(mesh)
     entry.dryrun_multichip(2, device=mesh)
+
+
+@pytest.mark.parametrize("name", SMALL)
+def test_cuda_cli_matches_jax_cpu(name, dev, tmp_path):
+    """Tie order and prune decisions on the card against the reference
+    directly: the port's CLI on cuda:0 and floria_tpu.pipeline.run on
+    JAX's CPU backend, same inputs and -o, every output file but
+    cmd.log byte-equal (a difference names the file and its first
+    differing line); the JAX bytes also equal the golden record's."""
+    _build.LAUNCHES.clear()
+    run_both(name, tmp_path, device="cuda:0", port_cli=True)
+    assert _build.LAUNCHES["beam_scan"] > 0

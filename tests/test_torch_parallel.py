@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
+from chip_smoke import _tree
 from floria_tpu import cli as jax_cli
 from floria_tpu.kernels import beam as B
 from floria_tpu.options import Options
@@ -27,7 +28,6 @@ from floria_tpu_torch import cli, entry
 from floria_tpu_torch.kernels import _build
 from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.phase import local as TL
-from test_torch_pipeline import _tree
 from test_torch_sweep import _assert_sweeps_equal, _blocks
 
 # One intra-op thread: the suite runs several pytest workers on one

@@ -12,11 +12,9 @@ card (where the oracle's imports are not available). Regenerate it with
 """
 
 import dataclasses
-import filecmp
 import hashlib
 import json
 import os
-import shutil
 import sys
 import tempfile
 
@@ -25,11 +23,10 @@ import torch
 
 import oracle_pipeline
 from floria_tpu.options import Options
-from floria_tpu.pipeline import run as run_jax
 from floria_tpu.sim.simulate import SimConfig, simulate
 from floria_tpu_torch import cli
-from floria_tpu_torch.pipeline import run as run_torch
 from test_pipeline_oracle import CONFIGS, _ingest_like_pipeline
+from test_torch_oracle_configs import run_both
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "long3_oracle.json")
@@ -42,46 +39,11 @@ LONG3_ARGS = ["-e", "0.02", "-l", "4000", "--snp-count-filter", "10"]
 torch.set_num_threads(1)
 
 
-def _opts(sim_dir, out_dir):
-    return Options(
-        bam_file=os.path.join(sim_dir, "sim.bam"),
-        vcf_file=os.path.join(sim_dir, "sim.vcf"),
-        reference_fasta=os.path.join(sim_dir, "sim.fa"),
-        out_dir=out_dir, epsilon=0.02, block_length=4000,
-        snp_count_filter=10, overwrite=True)
-
-
-def _tree(root):
-    out = []
-    for d, _dirs, files in os.walk(root):
-        for f in files:
-            if f != "cmd.log":
-                out.append(os.path.relpath(os.path.join(d, f), root))
-    return sorted(out)
-
-
 @pytest.mark.parametrize("name", ["long2", "paired2"])
 def test_torch_pipeline_matches_jax(name, tmp_path):
-    sim_dir = str(tmp_path / "sim")
-    simulate(CONFIGS[name], sim_dir)
-    out_dir = str(tmp_path / "out")
-    outs = {}
-    for side, run in (("jax", run_jax), ("torch", run_torch)):
-        os.makedirs(out_dir)
-        opts = _opts(sim_dir, out_dir)
-        if side == "jax":
-            run(opts)
-        else:
-            run(opts, device="cpu")
-        outs[side] = str(tmp_path / side)
-        shutil.move(out_dir, outs[side])
-    files = _tree(outs["jax"])
-    assert files == _tree(outs["torch"])
-    assert any(f.endswith(".vartigs") for f in files)
-    for f in files:
-        assert filecmp.cmp(os.path.join(outs["jax"], f),
-                           os.path.join(outs["torch"], f),
-                           shallow=False), f
+    """Both pipelines at one -o, every output file byte-equal, the JAX
+    bytes equal to tests/data/north_star_golden.json's."""
+    run_both(name, tmp_path)
 
 
 def _sha256(path):
