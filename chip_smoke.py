@@ -15,23 +15,32 @@ each; any failure raises (exit code != 0):
                 at G=8 R=320 S=2048 (mixed ploidies 2..5, K1 in clusters
                 of 8 CTAs; K1 also against the plain scan on the CPU),
                 timed, plus a windowed and a dedup case; K4 (the whole
-                UPEM move function, (assign, diff, num_reads) ->
+                UPEM move function, (assign, diff, num_reads, active) ->
                 proposal) against its plain version on the sweep's first
-                UPEM iteration, timed;
+                UPEM iteration, timed; K6 (the UPEM move evaluation:
+                init, step, unit MEC) against its plain version at the
+                sweep's P=5 climb, timed, and the whole climb (K6 and K4
+                launches, no host wait) against the host-loop route (the
+                torch evaluation and a wait on `active.any()` per
+                iteration), equal results, both timed;
   4. e2e      - the port's CLI (`--device cuda:0`: phases 3-7 use one card
                 on any machine) on bench.py's `ecoli2` community (1 Mbp,
                 2 strains, 50k SNPs, 50x per strain): a first run (its
                 kernel launch counts), a second run (its K1 dispatches,
-                K5 partitions and K4 calls recorded), a third run under
-                torch.profiler (the card's busy share) and a `--device
-                cpu` run; all four must write the same bytes;
-  5. dispatch - K1 and K4 against their plain versions on the card at the
-                main path's own largest beam dispatch, recorded in phase
-                4, and on its blocks at the next ploidy, timed; K4 also at
-                the later UPEM iterations that apply moves (the main
-                path's, and those of UPEM loops on the next-ploidy
-                dispatch and on phase 3's sweep), the one that moves the
-                most reads timed;
+                K5 partitions and K4 calls recorded; every sweep level's
+                launch under sync debug mode "error", so a host wait
+                there fails the run, and each pull's host waits
+                counted), a third run under torch.profiler (the card's
+                busy share) and a `--device cpu` run; all four must
+                write the same bytes;
+  5. dispatch - K1, K4 and K6 against their plain versions on the card at
+                the main path's own largest beam dispatch, recorded in
+                phase 4, and on its blocks at the next ploidy, timed, with
+                the whole climb against the host-loop route there; K4
+                also at the later UPEM iterations that apply moves (the
+                main path's, and those of UPEM loops on the next-ploidy
+                dispatch and on phase 3's sweep), with their `active`
+                masks, the one that moves the most reads timed;
   6. realign  - K5 (the realignment NW) against its plain version on the
                 card (best alleles and scores) and against the native C++
                 Gotoh on the host, bitwise, at the main path's own
@@ -46,15 +55,23 @@ each; any failure raises (exit code != 0):
                 sha256 in tests/data/north_star_golden.json; seconds and
                 kernel launches per config;
  7c. config4  - BASELINE.json config #4, the 5-strain community (300 kbp,
-                9,000 SNPs, `-p 6 -s 3`) at full size: two CLI runs in
-                this process, both held to the JAX CLI's hashes; stage
-                times, launches, peak device memory, the second run's
-                beam dispatches per sweep level and K4 calls that applied
-                a move; the outputs' vartig accuracy and haploset purity
-                against the simulated truth, equal to the golden's;
+                9,000 SNPs, `-p 6 -s 3`) at full size: three CLI runs in
+                this process (first, second, traced), each held to the
+                JAX CLI's hashes; stage times, launches, peak device
+                memory, the card's busy share (traced); the second run's
+                beam dispatches per sweep level, K4 calls that applied a
+                move, its climbs' inputs, and its levels launched under
+                sync debug mode "error" with each pull's host waits
+                counted; K4 and K6 launch 20 and 22 times per dispatch;
+                the outputs' vartig accuracy and haploset purity against
+                the simulated truth, equal to the golden's;
  7d. tools    - vartig-dump, haplotagging (HAPQ >= 0) and a frags.txt
                 round trip of get_frags_from_bam's fragments on long3,
                 each output held to the JAX functions' hash;
+ 7e. upem_climb (run between 7c and 7d) - K6 against its plain version
+                at every climb config4's second run recorded; at the
+                largest dispatch of each level K6 timed and the whole
+                climb against the host-loop route;
   8. parallel - the parallel layer (floria_tpu_torch/parallel/), two
                 shards on the one card (one shard per card where the
                 machine has more): (a) K1 through beam_search_sharded (the
@@ -75,12 +92,17 @@ each; any failure raises (exit code != 0):
                 launch K1), both wall times;
   9. summary  - K1's and K4's times at the `ecoli2` dispatch (P=2, P=3)
                 and on the sweep, and K4's at the timed later iteration,
-                beside their bounds and the `ecoli2` launch counts; the
-                run fails if any jax or `floria_tpu` module is loaded.
+                beside their bounds and the `ecoli2` launch counts; K6's
+                (`k6_summary`) with its launches per `ecoli2`, `multi500`
+                and `config4` run, the climbs against the host-loop
+                route, `phase.launch` / `phase.wait`, host waits per
+                level, idle shares and peak memory; the run fails if any
+                jax or `floria_tpu` module is loaded.
 With --ab-inputs it also saves the inputs of every timed K4 and K5 case,
 for scripts/torch_kernel_parent_ab.py to time an earlier tree's calls on
 them.
-Times are medians of 3 (K4: 20) after one warm run of the whole call,
+Times are medians of 3 (K4, K6: 20; climbs: 5) after one warm run of the
+whole call,
 wrapper included, CUDA-synchronized (`kernel_ms`, the kernel line's
 `ms`); beside them `kernel_device_ms` is the kernel alone on the card,
 from torch.profiler's CUDA activity. Every record that holds a time
@@ -89,7 +111,7 @@ is computed from this run's inputs: the larger of the bytes the function must mo
 output written once) over 3.35 TB/s and its operations over 67 T/s (the
 H100 SXM's HBM rate and its f32 rate outside the tensor cores, NVIDIA's
 data sheet; integer operations are counted at that rate, which makes the
-bound a lower one). No single PyTorch call computes any of the three
+bound a lower one). No single PyTorch call computes any of the four
 kernels, so `library_ms` is null. The last lines are the kernel table,
 the nvidia-smi line and {"ok": true, "device": {...}}.
 """
@@ -108,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -441,18 +464,19 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
 AB_CASES = {"upem_moves": {}, "nw_best": {}}
 
 
-def check_moves(assign, diff, nr, P, label="", timing=True):
-    """K4, the whole move function (assign, diff, num_reads) -> proposal,
-    against its plain version (the candidates and their stable sort in
-    torch, the walk on the host) on the same card, bitwise; timed.
-    Returns (max_abs_err, kernel_s, plain_s, (bound_ms, bound_by))."""
+def check_moves(assign, diff, nr, P, label="", timing=True, active=None):
+    """K4, the whole move function (assign, diff, num_reads, active) ->
+    proposal, against its plain version (the candidates and their stable
+    sort in torch, the walk on the host) on the same card, bitwise;
+    timed. Returns (max_abs_err, kernel_s, plain_s, (bound_ms,
+    bound_by))."""
     from floria_tpu_torch.kernels import upem_batch as tu
 
     assign = assign.to(torch.int32).contiguous()
     diff = diff.contiguous()
     nr = nr.to(torch.int32).contiguous()
-    got = tu.apply_moves_cuda(assign, diff, nr)
-    ref = tu.apply_moves_plain(assign, diff, nr)
+    got = tu.apply_moves_cuda(assign, diff, nr, active)
+    ref = tu.apply_moves_plain(assign, diff, nr, active)
     err = max_abs_diff(ref, got)
     if err != 0.0 or not torch.equal(got, ref):
         raise AssertionError(f"K4 {label} differs from the plain move "
@@ -461,11 +485,12 @@ def check_moves(assign, diff, nr, P, label="", timing=True):
     k_s = p_s = dev_ms = None
     if timing:
         # A call is tens of us of host work: 20 runs steady the median.
-        k_s = timed(lambda: tu.apply_moves_cuda(assign, diff, nr), reps=20)
-        p_s = timed(lambda: tu.apply_moves_plain(assign, diff, nr),
+        k_s = timed(lambda: tu.apply_moves_cuda(assign, diff, nr, active),
+                    reps=20)
+        p_s = timed(lambda: tu.apply_moves_plain(assign, diff, nr, active),
                     reps=20)
         dev_ms = kernel_device_ms(
-            lambda: tu.apply_moves_cuda(assign, diff, nr),
+            lambda: tu.apply_moves_cuda(assign, diff, nr, active),
             "upem_moves_kernel")
         AB_CASES["upem_moves"][label] = tuple(x.cpu()
                                               for x in (assign, diff, nr))
@@ -474,6 +499,7 @@ def check_moves(assign, diff, nr, P, label="", timing=True):
     emit({"phase": "kernels", "kernel": "upem_moves", "case": label,
           "G": G, "R": R, "P": P,
           "shared_memory": tu.moves_in_shared(R, P, assign.device),
+          "active": G if active is None else int(active.sum()),
           "n_valid": int(n_valid.sum()), "n_valid_max": int(n_valid.max()),
           "moves_applied": int((got != assign).sum()),
           "bitwise_equal": True,
@@ -499,7 +525,8 @@ def check_first_moves(ups, P, A=2, label=""):
 class MovesRecorder:
     """Keeps the inputs and outputs of every move-function call (K4) of
     the UPEM loops run while active, with each call's iteration index in
-    its loop."""
+    its loop. The inputs are copied: the climb refines its assignment
+    and distances in place."""
 
     def __init__(self):
         from floria_tpu_torch.kernels import upem_batch
@@ -513,9 +540,11 @@ class MovesRecorder:
         self._apply, self._upem = self.module.apply_moves, \
             self.local.upem_optimize_device
 
-        def apply_moves(assign, diff, num_reads):
-            out = self._apply(assign, diff, num_reads)
-            self.calls.append((self._it, assign, diff, num_reads, out))
+        def apply_moves(assign, diff, num_reads, active=None):
+            out = self._apply(assign, diff, num_reads, active)
+            self.calls.append((self._it, assign.clone(), diff.clone(),
+                               num_reads, None if active is None
+                               else active.clone(), out))
             self._it += 1
             return out
 
@@ -533,9 +562,10 @@ class MovesRecorder:
 
     def later_with_moves(self, label):
         """The calls past a loop's first iteration that applied moves, as
-        (label iteration k, (assign, diff, num_reads, proposal))."""
+        (label iteration k, (assign, diff, num_reads, active,
+        proposal))."""
         return [(f"{label} iteration {c[0]}", c[1:]) for c in self.calls
-                if c[0] >= 1 and not torch.equal(c[4], c[1].to(c[4].dtype))]
+                if c[0] >= 1 and not torch.equal(c[5], c[1].to(c[5].dtype))]
 
 
 def upem_loop_moves(dev, ups, P, A, label):
@@ -552,21 +582,248 @@ def upem_loop_moves(dev, ups, P, A, label):
 
 def check_later_moves(later):
     """K4 against its plain version on every later UPEM iteration in
-    `later` ([(label, (assign, diff, num_reads, proposal))]); the one
-    that moves the most reads is timed. Returns (max_abs_err, kernel_s,
-    plain_s, bound, label) of that one, or None when `later` is empty."""
+    `later` ([(label, (assign, diff, num_reads, active, proposal))]),
+    with the iteration's `active` mask; the one that moves the most
+    reads is timed. Returns (max_abs_err, kernel_s, plain_s, bound,
+    label) of that one, or None when `later` is empty."""
     if not later:
         return None
-    timed_label = max(later, key=lambda x: int((x[1][3] != x[1][0])
+    timed_label = max(later, key=lambda x: int((x[1][4] != x[1][0])
                                               .sum()))[0]
     err, out = 0.0, None
-    for label, (assign, diff, num_reads, _prop) in later:
+    for label, (assign, diff, num_reads, active, _prop) in later:
         res = check_moves(assign, diff, num_reads, diff.shape[2],
-                          label=label, timing=label == timed_label)
+                          label=label, timing=label == timed_label,
+                          active=active)
         err = max(err, res[0])
         if label == timed_label:
             out = res
     return (err, *out[1:], timed_label)
+
+
+def k6_bound(alleles, P):
+    """K6's bound for one full evaluation of every instance (mode
+    "init"): each cell's allele (1 B) and weight (4 B) and each read's
+    assignment (4 B) read once, `diff` (8 B per read and part) and the
+    score written once; about P + 2 operations per cell."""
+    G, R, S = alleles.shape
+    cells = G * R * S
+    return bound(cells * 5 + G * R * (4 + 8 * P) + G * 8, cells * (P + 2))
+
+
+def check_eval(ups, P, A, label, timing=False):
+    """K6 against its plain version on the card, bitwise, at a climb's
+    own inputs `ups` = (alleles, weights, num_reads, eps, assign0): init
+    (the distances and score of assign0); one step over three kinds of
+    instance (g % 3): the climb's first proposal (K4 on init's result),
+    a worse proposal (assign0 against the climb's result) and an
+    unchanged one; and the unit MEC of assign0. With `timing`, K6's init
+    call (a full evaluation of every instance) and its plain version are
+    timed. Returns (max_abs_err, kernel_s, plain_s, (bound_ms,
+    bound_by))."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    al, wt, nr, ep, asg = ups
+    asg = asg.to(torch.int32).contiguous()
+    nr = nr.to(torch.int32).contiguous()
+    got = tu.upem_eval_cuda("init", al, wt, asg, ep, P, A)
+    want = tu.upem_eval_plain("init", al, wt, asg, ep, P, A)
+    errs = [max_abs_diff(a, b) for a, b in zip(want, got)]
+    first = tu.apply_moves_cuda(asg, want[0], nr, want[2])
+    refined = tu.upem_optimize_device(al, wt, asg, nr, ep, P, A,
+                                      device=al.device)[0]
+    kind = (torch.arange(al.shape[0], device=al.device) % 3)[:, None]
+    best = torch.where(kind == 0, asg, refined).contiguous()
+    proposal = torch.where(kind == 0, first, torch.where(
+        kind == 1, asg, refined)).contiguous()
+    diff, score, active = tu.upem_eval_plain("init", al, wt, best, ep, P, A)
+    states = [tuple(x.clone() for x in (best, score, diff, active))
+              for _ in range(2)]
+    tu.upem_eval_cuda("step", al, wt, proposal, ep, P, A, states[0])
+    tu.upem_eval_plain("step", al, wt, proposal, ep, P, A, states[1])
+    errs += [max_abs_diff(b, a) for a, b in zip(*states)]
+    mec = tu.upem_eval_cuda("mec", al, wt, asg, ep, P, A)
+    errs.append(max_abs_diff(tu.upem_eval_plain("mec", al, wt, asg, ep, P,
+                                                A), mec))
+    err = max(errs)
+    if err != 0.0:
+        raise AssertionError(f"K6 {label} differs from its plain version "
+                             f"(max abs {err}; init, step, mec: {errs})")
+    G, R, S = al.shape
+    bnd = k6_bound(al, P)
+    k_s = p_s = dev_ms = None
+    if timing:
+        k_s = timed(lambda: tu.upem_eval_cuda("init", al, wt, asg, ep, P, A),
+                    reps=20)
+        p_s = timed(lambda: tu.upem_eval_plain("init", al, wt, asg, ep, P,
+                                               A))
+        dev_ms = kernel_device_ms(
+            lambda: tu.upem_eval_cuda("init", al, wt, asg, ep, P, A),
+            "upem_eval_kernel")
+    emit({"phase": "kernels", "kernel": "upem_eval", "case": label,
+          "G": G, "R": R, "S": S, "P": P, "A": A,
+          "shared_memory": tu.eval_in_shared(S, P, A, al.device),
+          "step_accepted": int(states[1][3].sum()),
+          "step_instances": G, "bitwise_equal": ["init", "step", "mec"],
+          "kernel_ms": None if k_s is None else k_s * 1e3,
+          "kernel_device_ms": dev_ms,
+          "plain_ms": None if p_s is None else p_s * 1e3,
+          "bound_ms": bnd[0], "bound_by": bnd[1]})
+    return err, k_s, p_s, bnd
+
+
+def climb_host_loop(alleles, weights, assign0, num_reads, epsilon, P, A):
+    """The climb as the port ran it before K6: the plain f64 evaluation
+    in torch ops, K4 without a mask, and a host wait on `active.any()`
+    before every iteration. The yardstick of `climb_ab`; the port no
+    longer runs it. Returns (best, mec, diff in weight units,
+    iterations)."""
+    from floria_tpu_torch import constants
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    best = assign0.clone()
+    diff, best_score = tu._eval_diff_score(alleles, weights, best, epsilon,
+                                           P, A)
+    active = torch.ones(best.shape[0], dtype=torch.bool, device=best.device)
+    it = 0
+    while it < constants.NUM_ITER_OPTIMIZE and bool(active.any()):
+        proposal = tu.apply_moves_cuda(best, diff, num_reads)
+        active = active & (proposal != best).any(dim=1)
+        new_diff, new_score = tu._eval_diff_score(alleles, weights,
+                                                  proposal, epsilon, P, A)
+        improved = active & (new_score > best_score)
+        best = torch.where(improved[:, None], proposal, best)
+        best_score = torch.where(improved, new_score, best_score)
+        diff = torch.where(improved[:, None, None], new_diff, diff)
+        active = improved
+        it += 1
+    mec = tu._eval_mec(alleles, best, epsilon, P, A)
+    return best, mec, diff * tu.INV_WEIGHT_SCALE, it
+
+
+def climb_ab(ups, P, A, label):
+    """The whole climb at one dispatch's inputs `ups` (as check_eval's):
+    the port's route (K6 and K4 launches, no host wait) against
+    climb_host_loop, equal results, both timed in this call in turns
+    (host loop, port, port, host loop), plus the port route's enqueue
+    time on the host clock. Returns the record."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    al, wt, nr, ep, asg = ups
+    asg = asg.to(torch.int32).contiguous()
+    nr = nr.to(torch.int32).contiguous()
+
+    def port():
+        return tu.upem_optimize_device(al, wt, asg, nr, ep, P, A,
+                                       device=al.device)
+
+    def host_loop():
+        return climb_host_loop(al, wt, asg, nr, ep, P, A)
+
+    got, (*want, iters) = port(), host_loop()
+    for name, a, b in zip(("best", "mec", "diff"), want, got):
+        if not torch.equal(a, b):
+            raise AssertionError(f"climb {label}: {name} differs from the "
+                                 "host-loop route")
+    t = [timed(f, reps=5) * 1e3 for f in (host_loop, port, port, host_loop)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    port()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    G, R, S = al.shape
+    rec = {"phase": "upem_climb", "case": label, "G": G, "R": R, "S": S,
+           "P": P, "host_loop_iterations": iters,
+           "moved_instances": int((got[0] != asg).any(dim=1).sum()),
+           "equal_to_host_loop": True, "climb_ms": t[1:3],
+           "host_loop_ms": [t[0], t[3]], "climb_enqueue_ms": enqueue_ms}
+    emit(rec)
+    return rec
+
+
+class ClimbRecorder:
+    """Keeps the inputs of every UPEM climb the sweep runs while active,
+    as (ploidy, (alleles, weights, num_reads, eps, assign0),
+    max_alleles). The climb copies assign0 before refining it."""
+
+    def __init__(self):
+        from floria_tpu_torch.phase import local
+
+        self.local = local
+        self.climbs = []
+
+    def __enter__(self):
+        self._upem = self.local.upem_optimize_device
+
+        def upem(alleles, weights, assign0, nr, ep, ploidy, max_alleles, *,
+                 device):
+            self.climbs.append((ploidy, (alleles, weights, nr, ep, assign0),
+                                max_alleles))
+            return self._upem(alleles, weights, assign0, nr, ep, ploidy,
+                              max_alleles, device=device)
+
+        self.local.upem_optimize_device = upem
+        return self
+
+    def __exit__(self, *exc):
+        self.local.upem_optimize_device = self._upem
+
+
+class SyncCheck:
+    """While active, every sweep level's launch (`_sweep_launch`) runs
+    under torch.cuda.set_sync_debug_mode("error"), so any host wait in it
+    raises, and every level's pull (`_sweep_pull`) counts its host
+    waits: CUDA event synchronizations plus any synchronizing call
+    PyTorch reports (sync debug mode "warn")."""
+
+    def __init__(self):
+        from floria_tpu_torch.phase import local
+
+        self.local = local
+        self.pull_waits = []
+        self._events = 0
+
+    def __enter__(self):
+        self._launch = self.local._sweep_launch
+        self._pull = self.local._sweep_pull
+        self._sync = torch.cuda.Event.synchronize
+
+        def sync(ev):
+            self._events += 1
+            return self._sync(ev)
+
+        def launch(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return self._launch(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def pull(pending):
+            n0 = self._events
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = self._pull(pending)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            self.pull_waits.append(self._events - n0 + sum(
+                "synchroniz" in str(w.message) for w in caught))
+            return out
+
+        torch.cuda.Event.synchronize = sync
+        self.local._sweep_launch, self.local._sweep_pull = launch, pull
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.Event.synchronize = self._sync
+        self.local._sweep_launch = self._launch
+        self.local._sweep_pull = self._pull
+
+    def summary(self):
+        return {"levels": len(self.pull_waits), "launch_host_waits": 0,
+                "pull_host_waits_per_level": self.pull_waits}
 
 
 def run_cli(sim_dir, out_dir, device="cuda:0", extra=()):
@@ -650,9 +907,11 @@ def device_busy_s(prof) -> float:
 
 
 def e2e_ecoli2(tmp):
-    """The port's CLI on bench.py's ecoli2 community: first, second,
-    traced and CPU runs, byte-equal. Returns (launches of the first run,
-    the second run's recorded dispatches, its recorded move calls)."""
+    """The port's CLI on bench.py's ecoli2 community: first, second
+    (every sweep level's launch under sync debug mode "error", its
+    pull's host waits counted), traced and CPU runs, byte-equal. Returns
+    (launches of the first run, the second run's recorded dispatches,
+    its recorded move calls, {run: record})."""
     from floria_tpu_torch import timing
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.sim.simulate import SimConfig, simulate
@@ -696,14 +955,18 @@ def e2e_ecoli2(tmp):
     rec["launches"] = launches
     rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     emit(rec)
-    for k in ("beam_scan", "upem_moves", "nw_best"):
+    for k in ("beam_scan", "upem_moves", "nw_best", "upem_eval"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  f"ecoli2 run: {launches}")
+    recs = {"first": rec}
 
-    with DispatchRecorder() as recorder, MovesRecorder() as moves:
+    with DispatchRecorder() as recorder, MovesRecorder() as moves, \
+            SyncCheck() as sync:
         rec, second = one_run("second")
+    rec["sync_check"] = sync.summary()
     emit(rec)
+    recs["second"] = rec
     assert_same_tree(first, second, "ecoli2 second run")
     if len(recorder.beam) != launches["beam_scan"]:
         raise AssertionError(f"{len(recorder.beam)} beam dispatches in "
@@ -725,6 +988,7 @@ def e2e_ecoli2(tmp):
     rec["device_busy_s"] = busy
     rec["device_idle_share"] = 1.0 - busy / rec["e2e_s"]
     emit(rec)
+    recs["traced"] = rec
     assert_same_tree(first, traced, "ecoli2 traced run")
 
     rec, cpu = one_run("cpu", device="cpu")
@@ -732,21 +996,23 @@ def e2e_ecoli2(tmp):
     assert_same_tree(first, cpu, "ecoli2 card run against the CPU run")
     emit({"phase": "e2e", "config": "ecoli2", "byte_equal":
           ["second", "traced", "cpu"], "files": len(_tree(first))})
-    return launches, recorder, moves
+    return launches, recorder, moves, recs
 
 
 def check_dispatches(dev, recorder, moves, sweep_later):
-    """K1 and K4 against their plain versions at the main path's largest
-    recorded beam dispatch: as dispatched, and on the same blocks at the
-    next ploidy (the dispatch a further sweep level gives them). K4 runs
-    on the first UPEM iteration's input (the beam's assignments), and on
-    the later UPEM iterations that apply moves: the main path's own,
-    recorded in phase 4 (`moves`), those of the UPEM loop run here on the
-    next-ploidy dispatch, and `sweep_later` (phase 3's loop on the kernel
-    sweep); the one that moves the most reads is timed. Returns
-    ([(k1_err, k1_s, k1_plain_s, k1_bound, k4_err, k4_s, k4_plain_s,
-    k4_bound)] for the dispatch as made first and at the next ploidy,
-    check_later_moves' result)."""
+    """K1, K4 and K6 against their plain versions at the main path's
+    largest recorded beam dispatch: as dispatched, and on the same blocks
+    at the next ploidy (the dispatch a further sweep level gives them).
+    K4 runs on the first UPEM iteration's input (the beam's
+    assignments), and on the later UPEM iterations that apply moves: the
+    main path's own, recorded in phase 4 (`moves`), those of the UPEM
+    loop run here on the next-ploidy dispatch, and `sweep_later` (phase
+    3's loop on the kernel sweep); the one that moves the most reads is
+    timed. K6 runs at the climb's inputs (check_eval), and the whole
+    climb is timed against the host-loop route (climb_ab). Returns
+    ([{"k1": (err, kernel_s, plain_s, bound), "k4": ..., "k6": ...,
+    "climb": record}] for the dispatch as made first and at the next
+    ploidy, check_later_moves' result)."""
     (al, wt, nr, ep, npt), P0, W, kw, (_res, asg) = max(
         recorder.beam, key=lambda b: b[0][0].shape[0])
     A = kw["max_alleles"]
@@ -763,7 +1029,9 @@ def check_dispatches(dev, recorder, moves, sweep_later):
             raise AssertionError(f"{label}: K1 differs from its own "
                                  "main-path result")
         k4 = check_first_moves(ups, P, A, label=label + " iteration 0")
-        out.append((k1_err, k_s, p_s, k1_bnd, *k4))
+        out.append({"k1": (k1_err, k_s, p_s, k1_bnd), "k4": k4,
+                    "k6": check_eval(ups, P, A, label, timing=True),
+                    "climb": climb_ab(ups, P, A, label)})
 
     main_later = moves.later_with_moves("ecoli2 main path")
     n_next, next_later = upem_loop_moves(
@@ -986,9 +1254,10 @@ def north_star_phase(tmp, device="cuda:0"):
 class SweepCounter:
     """While active, counts the sweep's beam dispatches (K1) by level
     (the dispatch's ploidy) with their blocks, and its move-function
-    calls (K4) with those that applied at least one move. It keeps no
-    tensor and adds no device sync: each call's "moved" flag stays on
-    the device until summary()."""
+    calls (K4) with those that applied at least one move (a converged
+    instance's masked rounds move nothing). It keeps no tensor and adds
+    no device sync: each call's "moved" flag stays on the device until
+    summary()."""
 
     def __init__(self):
         from floria_tpu_torch.kernels import beam, upem_batch
@@ -1005,8 +1274,8 @@ class SweepCounter:
             self.blocks[P] = self.blocks.get(P, 0) + int(alleles.shape[0])
             return self._beam(alleles, weights, nr, ep, nparts, P, W, **kw)
 
-        def apply_moves(assign, diff, num_reads):
-            out = self._apply(assign, diff, num_reads)
+        def apply_moves(assign, diff, num_reads, active=None):
+            out = self._apply(assign, diff, num_reads, active)
             self.moved.append((out != assign.to(out.dtype)).any())
             return out
 
@@ -1031,15 +1300,23 @@ class SweepCounter:
 
 def config4_phase(tmp, device="cuda:0"):
     """Phase config4: BASELINE.json config #4, the 5-strain community
-    (300 kbp, 9,000 SNPs, `-p 6 -s 3`) at full size. The CLI runs twice
-    in this process (first, then second), both held to the JAX CLI's
-    bytes; the second run's sweep levels and K4 calls with moves are
-    counted; the outputs are scored against the simulation's truth and
-    must give the golden record's evaluation."""
-    from floria_tpu_torch import timing
+    (300 kbp, 9,000 SNPs, `-p 6 -s 3`) at full size. The CLI runs in
+    this process first, then second and, on a card, traced, each held to
+    the JAX CLI's bytes. The second run counts the sweep's beam
+    dispatches per level and the K4 calls that moved reads, records
+    every UPEM climb's inputs, and on a card runs every level's launch
+    under sync debug mode "error" and counts each pull's host waits; on
+    a card every climb is NUM_ITER_OPTIMIZE masked rounds, so K4 launches
+    20 times and K6 22 times per dispatch (plus the level-1 MEC of each
+    fused level-2 dispatch). The traced run gives the card's busy share.
+    The outputs are scored against the simulation's truth and must give
+    the golden record's evaluation. Returns (evaluation, the recorded
+    climbs, {run: record})."""
+    from floria_tpu_torch import constants, timing
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.sim.evaluate import (evaluate_haplosets,
                                                evaluate_vartigs)
+    from torch.profiler import ProfilerActivity, profile
 
     entry = load_north_star()["configs"]["config4"]
     contig = entry["sim_config"]["contig_name"]
@@ -1051,18 +1328,28 @@ def config4_phase(tmp, device="cuda:0"):
           "reads": n_reads})
     out_dir = os.path.join(tmp, "config4_out")
     on_card = torch.device(device).type == "cuda"
-    for label in ("first", "second"):
+    counter, climbs, sync = SweepCounter(), ClimbRecorder(), SyncCheck()
+    recs = {}
+    for label in ("first", "second", "traced") if on_card else ("first",
+                                                                 "second"):
         # The first run is left uninstrumented; the runs are byte-equal.
-        counter = SweepCounter()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         _build.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        with counter if label == "second" else contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            if label == "second":
+                stack.enter_context(counter)
+                stack.enter_context(climbs)
+                if on_card:
+                    stack.enter_context(sync)
+            prof = (stack.enter_context(profile(
+                activities=[ProfilerActivity.CUDA]))
+                if label == "traced" else None)
+            t0 = time.perf_counter()
             run_cli(sim_dir, out_dir, device=device,
                     extra=case_args(entry, sim_dir))
-        _sync(device)
-        e2e_s = time.perf_counter() - t0
+            _sync(device)
+            e2e_s = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
         assert_golden_outputs(f"config4 {label} run", out_dir,
                               entry["outputs_sha256"])
@@ -1073,16 +1360,38 @@ def config4_phase(tmp, device="cuda:0"):
                "files_equal_to_jax": len(entry["outputs_sha256"])}
         if on_card:
             rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-            for k in ("beam_scan", "upem_moves"):
+            for k in ("beam_scan", "upem_moves", "upem_eval"):
                 if launches.get(k, 0) <= 0:
                     raise AssertionError(f"config4 {label} run launched no "
                                          f"{k}: {launches}")
+        if prof is not None:
+            busy = device_busy_s(prof)
+            if busy <= 0.0:
+                raise AssertionError("the traced config4 run shows no "
+                                     "device time")
+            rec["device_busy_s"] = busy
+            rec["device_idle_share"] = 1.0 - busy / e2e_s
         if label == "second":
             rec.update(counter.summary())
-            if on_card and rec["move_calls"] != launches["upem_moves"]:
-                raise AssertionError(f"{rec['move_calls']} move calls, "
-                                     f"{launches} launches")
+            if on_card:
+                rec["sync_check"] = sync.summary()
+                dispatches = sum(counter.levels.values())
+                rounds = constants.NUM_ITER_OPTIMIZE
+                want = {"upem_moves": rounds * dispatches,
+                        "upem_eval": (rounds + 2) * dispatches
+                        + counter.levels.get(2, 0)}
+                got = {k: launches.get(k, 0) for k in want}
+                if got != want or rec["move_calls"] != got["upem_moves"]:
+                    raise AssertionError(
+                        f"config4: {rec['move_calls']} move calls and "
+                        f"launches {got} for {dispatches} dispatches, "
+                        f"expected {want}")
+                if not 0 < rec["move_calls_with_moves"] < rec["move_calls"]:
+                    raise AssertionError(
+                        f"config4: {rec['move_calls_with_moves']} of "
+                        f"{rec['move_calls']} move calls moved reads")
         emit(rec)
+        recs[label] = rec
         kept = out_dir + "_" + label
         shutil.move(out_dir, kept)
     cdir = os.path.join(kept, contig)
@@ -1095,7 +1404,33 @@ def config4_phase(tmp, device="cuda:0"):
     if got != entry["evaluation"]:
         raise AssertionError(f"config4 evaluation {got} differs from the "
                              f"golden record's {entry['evaluation']}")
-    return got
+    return got, climbs.climbs, recs
+
+
+def upem_climb_phase(climbs):
+    """Phase upem_climb: K6 against its plain version at every UPEM
+    climb the config4 run recorded (check_eval: init, step, mec), and at
+    the largest dispatch of each sweep level K6's init timed and the
+    whole climb timed against the host-loop route (climb_ab). Returns
+    ({level: (k6 result, climb record)} at those dispatches, max_abs_err
+    over every check)."""
+    largest = {}
+    for i, (P, ups, A) in enumerate(climbs):
+        if P not in largest or ups[0].shape[0] > climbs[largest[P]][1][0] \
+                .shape[0]:
+            largest[P] = i
+    err, out = 0.0, {}
+    for i, (P, ups, A) in enumerate(climbs):
+        label = f"config4 level {P} dispatch {i}"
+        timing = largest[P] == i
+        res = check_eval(ups, P, A, label, timing=timing)
+        err = max(err, res[0])
+        if timing:
+            out[P] = (res, climb_ab(ups, P, A, label))
+    emit({"phase": "upem_climb", "config": "config4",
+          "climbs_checked": len(climbs), "levels": sorted(out),
+          "max_abs_err": err})
+    return out, err
 
 
 def tools_outputs(sim_dir, haplosets, contig, dest, device="cuda:0"):
@@ -1285,7 +1620,8 @@ def _shared_tree(root):
 def parallel_phase(dev, recorder, tmp):
     """Phase 8: the parallel layer, two shards on the one card or one
     shard per card of a machine with more; the unsharded references run
-    on `dev` (cuda:0) alone. Returns the sharded K1 record."""
+    on `dev` (cuda:0) alone. Returns (the sharded K1 record, the
+    one-process multi500 run's launch counts)."""
     from floria_tpu_torch.entry import dryrun_multichip
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.kernels import beam as tb
@@ -1361,7 +1697,7 @@ def parallel_phase(dev, recorder, tmp):
     torch.cuda.synchronize()
     two_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    for k in ("beam_scan", "upem_moves"):
+    for k in ("beam_scan", "upem_moves", "upem_eval"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"sharded sweep: {k} not launched "
                                  f"({launches})")
@@ -1380,7 +1716,7 @@ def parallel_phase(dev, recorder, tmp):
     dryrun_multichip(len(mesh), device=mesh)
     dry_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    for k in ("beam_scan", "upem_moves"):
+    for k in ("beam_scan", "upem_moves", "upem_eval"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"dryrun_multichip: {k} not launched "
                                  f"({launches})")
@@ -1398,13 +1734,15 @@ def parallel_phase(dev, recorder, tmp):
     for nproc in (1, 2):
         wall, ranks = run_ranks(sim_dir, out_dir, nproc)
         for k, rank in enumerate(ranks):
-            for kernel in ("beam_scan", "upem_moves"):
+            for kernel in ("beam_scan", "upem_moves", "upem_eval"):
                 if rank["launches"].get(kernel, 0) <= 0:
                     raise AssertionError(f"rank {k} of {nproc} launched "
                                          f"no {kernel}: {rank}")
         kept = f"{out_dir}_{nproc}"
         shutil.move(out_dir, kept)
         runs[nproc] = kept
+        if nproc == 1:
+            one_process_launches = ranks[0]["launches"]
         emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
               "processes": nproc, "wall_s": wall,
               "rank_launches": [r["launches"] for r in ranks],
@@ -1424,7 +1762,7 @@ def parallel_phase(dev, recorder, tmp):
         raise AssertionError(f"{vartigs} of {MULTI_CONTIGS} contigs phased")
     emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
           "byte_equal": "2 ranks vs 1 process", "files": len(files)})
-    return k1
+    return k1, one_process_launches
 
 
 def loaded_reference_modules():
@@ -1482,51 +1820,94 @@ def main(argv=None) -> None:
     k4_err, k4_sweep_s, _p_s, k4_sweep_bnd = check_first_moves(
         ups, 5, label="sweep")
     _n, sweep_later = upem_loop_moves(dev, ups, 5, 2, "sweep")
+    k6_sweep = check_eval(ups, 5, 2, "sweep P=5", timing=True)
+    climbs_ab = {"sweep P=5": climb_ab(ups, 5, 2, "sweep P=5")}
     del ups
 
     with tempfile.TemporaryDirectory(prefix="floria_smoke_") as tmp:
-        launches, recorder, moves = e2e_ecoli2(tmp)
+        launches, recorder, moves, ecoli2_runs = e2e_ecoli2(tmp)
         per_dispatch, k4_later = check_dispatches(dev, recorder, moves,
                                                   sweep_later)
         k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
         del moves, sweep_later
         parity_long3(tmp)
         north_star = north_star_phase(tmp)
-        config4_phase(tmp)
+        _eval, climbs, config4_runs = config4_phase(tmp)
+        config4_k6, k6_err = upem_climb_phase(climbs)
+        del climbs
         tools_phase(tmp, *north_star["long3"])
-        sharded = parallel_phase(dev, recorder, tmp)
+        sharded, multi_launches = parallel_phase(dev, recorder, tmp)
         del recorder
 
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the port loaded jax or floria_tpu: {loaded}")
-    for e1, _k1, _p1, _b1, e4, _k4, _p4, _b4 in per_dispatch:
-        k1_err, k4_err = max(k1_err, e1), max(k4_err, e4)
+    k6_err = max(k6_err, k6_sweep[0])
+    for d in per_dispatch:
+        k1_err = max(k1_err, d["k1"][0])
+        k4_err = max(k4_err, d["k4"][0])
+        k6_err = max(k6_err, d["k6"][0])
+        climbs_ab[d["climb"]["case"]] = d["climb"]
+    for P, (_res, climb) in config4_k6.items():
+        climbs_ab[climb["case"]] = climb
     k1_err = max(k1_err, sharded["max_abs_err"])
-    (_e1, k1_s, k1_plain_s, k1_bnd, _e4, k4_s, k4_plain_s,
-     k4_bnd) = per_dispatch[0]
+    k1_s, k1_plain_s, k1_bnd = per_dispatch[0]["k1"][1:]
+    k4_s, k4_plain_s, k4_bnd = per_dispatch[0]["k4"][1:]
+    k6_s, k6_plain_s, k6_bnd = per_dispatch[0]["k6"][1:]
     emit({"phase": "k1_summary", "launches_ecoli2": launches,
           "ecoli2_p2_ms": k1_s * 1e3,
           "ecoli2_p2_two_shards_ms": sharded["sharded_ms"],
-          "ecoli2_p3_ms": per_dispatch[1][1] * 1e3,
+          "ecoli2_p3_ms": per_dispatch[1]["k1"][1] * 1e3,
           "sweep_ms": k1_sweep_s * 1e3,
           "bound_ecoli2_p2_ms": k1_bnd[0],
-          "bound_ecoli2_p3_ms": per_dispatch[1][3][0],
+          "bound_ecoli2_p3_ms": per_dispatch[1]["k1"][3][0],
           "bound_sweep_ms": k1_sweep_bnd[0]})
     if k4_later is not None:
         k4_err = max(k4_err, k4_later[0])
     emit({"phase": "k4_summary", "launches_ecoli2": launches["upem_moves"],
           "ecoli2_p2_ms": k4_s * 1e3,
-          "ecoli2_p3_ms": per_dispatch[1][5] * 1e3,
+          "ecoli2_p3_ms": per_dispatch[1]["k4"][1] * 1e3,
           "later_iteration": None if k4_later is None else k4_later[4],
           "later_iteration_ms": None if k4_later is None
           else k4_later[1] * 1e3,
           "sweep_ms": k4_sweep_s * 1e3,
           "bound_ecoli2_p2_ms": k4_bnd[0],
-          "bound_ecoli2_p3_ms": per_dispatch[1][7][0],
+          "bound_ecoli2_p3_ms": per_dispatch[1]["k4"][3][0],
           "bound_later_iteration_ms": None if k4_later is None
           else k4_later[3][0],
           "bound_sweep_ms": k4_sweep_bnd[0]})
+    runs = {"ecoli2": ecoli2_runs, "config4": config4_runs}
+    emit({"phase": "k6_summary",
+          "launches": {"ecoli2": launches, "multi500": multi_launches,
+                       "config4": config4_runs["first"]["launches"]},
+          "ms": {"ecoli2 P=2": k6_s * 1e3,
+                 "ecoli2 P=3": per_dispatch[1]["k6"][1] * 1e3,
+                 "sweep P=5": k6_sweep[1] * 1e3,
+                 **{f"config4 level {P}": res[1] * 1e3
+                    for P, (res, _c) in sorted(config4_k6.items())}},
+          "plain_ms": {"ecoli2 P=2": k6_plain_s * 1e3,
+                       "ecoli2 P=3": per_dispatch[1]["k6"][2] * 1e3,
+                       "sweep P=5": k6_sweep[2] * 1e3},
+          "bound_ms": {"ecoli2 P=2": k6_bnd[0],
+                       "ecoli2 P=3": per_dispatch[1]["k6"][3][0],
+                       "sweep P=5": k6_sweep[3][0],
+                       **{f"config4 level {P}": res[3][0]
+                          for P, (res, _c) in sorted(config4_k6.items())}},
+          "climb_ms": {k: c["climb_ms"] for k, c in climbs_ab.items()},
+          "host_loop_ms": {k: c["host_loop_ms"] for k, c in climbs_ab.items()},
+          "climb_enqueue_ms": {k: c["climb_enqueue_ms"]
+                               for k, c in climbs_ab.items()},
+          "phase_launch_wait_s": {
+              f"{cfg} {label}": {k: rec["stages_s"].get(k) for k in (
+                  "phasing", "phase.launch", "phase.wait")}
+              for cfg, recs in runs.items() for label, rec in recs.items()
+              if rec.get("device") != "cpu"},
+          "host_waits": {cfg: recs["second"]["sync_check"]
+                         for cfg, recs in runs.items()},
+          "device_idle_share": {cfg: recs["traced"]["device_idle_share"]
+                                for cfg, recs in runs.items()},
+          "peak_device_bytes": {cfg: recs["first"]["peak_device_bytes"]
+                                for cfg, recs in runs.items()}})
     if args.ab_inputs:
         torch.save(AB_CASES, args.ab_inputs)
 
@@ -1546,7 +1927,10 @@ def main(argv=None) -> None:
             k4_plain_s, k4_bnd),
         row("nw_best", "floria_tpu_torch/csrc/nw_best.cu",
             "floria_tpu/kernels/realign.py:94", k5_err, k5_s, k5_plain_s,
-            k5_bnd)]}), flush=True)
+            k5_bnd),
+        row("upem_eval", "floria_tpu_torch/csrc/upem_eval.cu",
+            "floria_tpu/kernels/upem_batch.py:50", k6_err, k6_s, k6_plain_s,
+            k6_bnd)]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

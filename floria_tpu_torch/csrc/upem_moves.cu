@@ -36,6 +36,12 @@
 // the host walk's indexing do; padding rows (r >= num_reads, -1 as the
 // traceback leaves them) are never candidates and come back unchanged.
 //
+// An `active` mask (null: every instance active) lets the hill-climb run its
+// fixed NUM_ITER_OPTIMIZE rounds on the card without a host wait: an
+// inactive instance's CTA copies its assignment to the proposal and
+// returns, so a converged instance proposes nothing (K6 then finds it
+// unchanged) and costs one load of its flag per round.
+//
 // Shared memory per instance: 12 bytes per possible candidate (at most
 // R * (P - 1)) plus 5 per read. When that exceeds the card's opt-in limit
 // (227 KB on the H100; e.g. R > 4,600 at P = 5), the same kernel keeps
@@ -68,6 +74,7 @@ __global__ void __launch_bounds__(THREADS) upem_moves_kernel(
     const int32_t* __restrict__ assign,     // [G, R]
     const double* __restrict__ diff,        // [G, R, P] quanta
     const int32_t* __restrict__ num_reads,  // [G]
+    const unsigned char* __restrict__ active,  // [G] or null
     int32_t* __restrict__ proposal,         // [G, R] out
     unsigned char* __restrict__ scratch,    // [G, stride] when !kShared
     long long stride, int R, int P, int cap, int head) {
@@ -76,6 +83,12 @@ __global__ void __launch_bounds__(THREADS) upem_moves_kernel(
   const int g = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
+  if (active != nullptr && !active[g]) {
+    const int32_t* src = assign + (long long)g * R;
+    int32_t* dst = proposal + (long long)g * R;
+    for (int r = tid; r < R; r += THREADS) dst[r] = src[r];
+    return;
+  }
   int* cur = reinterpret_cast<int*>(smem);  // [P] part sizes
   unsigned char* work = kShared ? smem + head : scratch + g * stride;
   double* gain = reinterpret_cast<double*>(work);             // [cap]
@@ -186,9 +199,11 @@ __global__ void __launch_bounds__(THREADS) upem_moves_kernel(
 
 // `smem` bytes of dynamic shared memory: `head` (the part sizes) plus, when
 // `scratch` is null, the per-instance work arrays (12 * cap + 5 * R bytes,
-// rounded up); otherwise those live at scratch + g * stride.
+// rounded up); otherwise those live at scratch + g * stride. `active`
+// ([G] bytes) may be null.
 extern "C" int floria_upem_moves(const void* assign, const void* diff,
-                                 const void* num_reads, void* proposal,
+                                 const void* num_reads, const void* active,
+                                 void* proposal,
                                  void* scratch, long long stride, int G,
                                  int R, int P, int cap, int head, int smem,
                                  void* stream) {
@@ -203,13 +218,14 @@ extern "C" int floria_upem_moves(const void* assign, const void* diff,
     }
     upem_moves_kernel<true><<<G, THREADS, smem, st>>>(
         (const int32_t*)assign, (const double*)diff,
-        (const int32_t*)num_reads, (int32_t*)proposal, nullptr, 0, R, P,
-        cap, head);
+        (const int32_t*)num_reads, (const unsigned char*)active,
+        (int32_t*)proposal, nullptr, 0, R, P, cap, head);
   } else {
     upem_moves_kernel<false><<<G, THREADS, smem, st>>>(
         (const int32_t*)assign, (const double*)diff,
-        (const int32_t*)num_reads, (int32_t*)proposal,
-        (unsigned char*)scratch, stride, R, P, cap, head);
+        (const int32_t*)num_reads, (const unsigned char*)active,
+        (int32_t*)proposal, (unsigned char*)scratch, stride, R, P, cap,
+        head);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""Device resolution and the TF32 guard.
+"""Device resolution, the TF32 guard, and copies between host and card
+that do not make the host wait.
 
 The port takes its device explicitly on every public entry; there is no
 global device state. Asking for CUDA on a host without it raises — the
@@ -12,6 +13,7 @@ are still off at every entry.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,6 +32,27 @@ def check_no_tf32() -> None:
             "torch.backends.cuda.matmul.allow_tf32 / "
             "torch.backends.cudnn.allow_tf32 must be False: TF32 GEMMs "
             "break the port's exact weight-quanta arithmetic")
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """`x` as a tensor on `device`. A card's copy goes through pinned
+    host memory with non_blocking=True, so the host does not wait for the
+    card (PyTorch's pinned-memory allocator keeps the staging buffer until
+    the copy has run); on the CPU the tensor shares `x`'s memory."""
+    t = torch.from_numpy(x)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(x: torch.Tensor) -> torch.Tensor:
+    """A host copy of `x`. From a card it lands in pinned memory through
+    a non_blocking copy: the values are there only after the stream's
+    work up to this call has run (wait on an event recorded after it)."""
+    if x.device.type != "cuda":
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return out.copy_(x, non_blocking=True)
 
 
 def resolve_device(device) -> torch.device:

@@ -13,7 +13,8 @@ that `os.replace` moves into place.
 
 `-fmad=false` keeps every multiply and add separately rounded, as
 PyTorch's elementwise kernels round them, so the kernels' f64 prune
-arithmetic matches the plain PyTorch versions on the same card.
+arithmetic (K1) and MEC sum (K6) match the plain PyTorch versions on the
+same card.
 """
 
 from __future__ import annotations
@@ -137,9 +138,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.floria_beam_cluster.argtypes = [I]
     lib.floria_upem_moves.restype = ctypes.c_int
     lib.floria_upem_moves.argtypes = (
-        [P] * 5          # assign, diff, num_reads, proposal, scratch
+        [P] * 6          # assign, diff, num_reads, active, proposal, scratch
         + [ctypes.c_longlong]  # scratch stride
         + [I] * 6        # G R P cap head smem
+        + [P])           # stream
+    lib.floria_upem_eval.restype = ctypes.c_int
+    lib.floria_upem_eval.argtypes = (
+        [I]              # mode
+        + [P] * 10       # alleles weights assign epsilon best score diff
+                         # active mec scratch
+        + [ctypes.c_longlong]  # scratch stride
+        + [I] * 6        # G R S P A smem
         + [P])           # stream
     lib.floria_nw_best.restype = ctypes.c_int
     lib.floria_nw_best.argtypes = [P] * 7 + [ctypes.c_longlong, I, I, P]

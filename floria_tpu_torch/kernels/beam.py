@@ -32,13 +32,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .. import constants, state
-from ..device import check_no_tf32, resolve_device
+from ..device import check_no_tf32, resolve_device, upload
 from . import _build
 from .scores import binom_tail, log_sum_exp
 
@@ -331,12 +332,19 @@ def frontier_bounds(alleles: torch.Tensor, num_reads: torch.Tensor
             lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous())
 
 
+def _window_cut(window: int) -> ValueError:
+    return ValueError(
+        f"beam_scan_cuda: a read extends past its window of {window} "
+        "columns; K1 takes only windows that hold every read")
+
+
 def _check_windows(alleles, num_reads, window: int) -> None:
     """K1 scores whole reads. The plain scan with a window < S scores
     only each read's window columns (the reference's `_window_offsets`);
     the two agree when every read lies inside its window, which the
     sweep's window policy guarantees (window >= span + 128 at 128-aligned
-    offsets of sorted reads). Raise otherwise."""
+    offsets of sorted reads). Raise otherwise. Reads a flag from the
+    device: the sweep checks on the host instead (`check_windows_host`)."""
     G, R, S = alleles.shape
     covered = alleles >= 0
     offs = _window_offsets(covered, S, window).long()
@@ -345,18 +353,66 @@ def _check_windows(alleles, num_reads, window: int) -> None:
     real = (torch.arange(R, device=alleles.device)[None, :]
             < num_reads.long()[:, None])
     if bool((covered & ~inside & real[..., None]).any()):
-        raise ValueError(
-            f"beam_scan_cuda: a read extends past its window of {window} "
-            "columns; K1 takes only windows that hold every read")
+        raise _window_cut(window)
+
+
+def read_columns(alleles: np.ndarray, num_reads: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(first, last) covered column of each of a block's first
+    `num_reads` rows ([R, S] alleles); last is -1 for a row that covers
+    none."""
+    cov = alleles[:num_reads] >= 0
+    has = cov.any(axis=1)
+    S = alleles.shape[1]
+    first = np.where(has, cov.argmax(axis=1), S)
+    last = np.where(has, S - 1 - cov[:, ::-1].argmax(axis=1), -1)
+    return first, last
+
+
+def check_windows_host(first: np.ndarray, last: np.ndarray, S: int,
+                       window: int) -> None:
+    """`_check_windows` for one block of a dispatch of S columns, on the
+    host, from its reads' `read_columns` (S: the dispatch's padded
+    width): numpy's copy of `_window_offsets`, the same raise."""
+    if window >= S:
+        return
+    has = last >= 0
+    start = np.where(has, first, S - 1)
+    off = np.maximum.accumulate(np.minimum(start // 128 * 128, S - window))
+    if (has & ((first < off) | (last >= off + window))).any():
+        raise _window_cut(window)
+
+
+# K1's dedup constants on the card, by (A, S, P, device): uploaded once.
+_HASH_CONSTS: dict = {}
+_hash_lock = threading.Lock()
+
+
+def _hash_consts(A: int, S: int, P: int, dev) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """K1's u32 dedup constants as int32 tensors of the same bits on
+    `dev`: hcol [S, F, A] (a column's constants contiguous), gmix
+    [F, P]."""
+    key = (A, S, P, dev)
+    with _hash_lock:
+        if key not in _HASH_CONSTS:
+            hs, gs = state.dedup_hash_consts(A, S, P)
+            _HASH_CONSTS[key] = tuple(
+                upload(np.ascontiguousarray(x).view(np.int32), dev)
+                for x in (np.stack(hs).transpose(2, 0, 1), np.stack(gs)))
+        return _HASH_CONSTS[key]
 
 
 def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts, *,
-                   P: int, W: int, A: int, window: int, dedup: bool = True
+                   P: int, W: int, A: int, window: int, dedup: bool = True,
+                   check_windows: bool = True
                    ) -> Tuple[BeamResult, torch.Tensor]:
     """K1 launch (csrc/beam_scan.cu): BeamResult plus the traceback
     assignments its epilogue writes. CUDA tensors only; arguments as
     `beam_scan_plain`'s first six, window already resolved (window >= S
-    means full width)."""
+    means full width). `check_windows=False` skips `_check_windows` (a
+    host wait) for a caller that checked on the host; the call then
+    never waits on the card."""
     G, R, S = alleles.shape
     dev = alleles.device
     if dev.type != "cuda":
@@ -378,15 +434,10 @@ def beam_scan_cuda(alleles, weights, num_reads, eps64, epsq, num_parts, *,
     if P > 127 or B1 * P > 4096 or A not in (2, 3, 4):
         raise ValueError(f"beam_scan_cuda: P={P}, W={W}, A={A} out of "
                          "range")
-    if window < S:
+    if window < S and check_windows:
         _check_windows(alleles, num_reads, window)
     rstart, lo, hi = frontier_bounds(alleles, num_reads)
-    # The u32 constants travel as int32 tensors of the same bits:
-    # hcol [S, F, A] (a column's constants contiguous), gmix [F, P].
-    hs, gs = state.dedup_hash_consts(A, S, P)
-    hcol, gmix = (torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
-                  .to(dev) for x in (np.stack(hs).transpose(2, 0, 1),
-                                     np.stack(gs)))
+    hcol, gmix = _hash_consts(A, S, P, dev)
     T1 = min(constants.BEAM_WARMUP_READS, R)
     rec_dt = _rec_dtype(B1)
     Bf = W if R > T1 else B1
@@ -439,13 +490,14 @@ def beam_search_traceback(alleles, weights, num_reads, epsilon, num_parts,
                           max_ploidy: int, beam_width: int,
                           max_alleles: int = constants.MAX_ALLELES,
                           window: int = 0, dedup: bool = True, *,
-                          device) -> Tuple[BeamResult, torch.Tensor]:
+                          device, check_windows: bool = True
+                          ) -> Tuple[BeamResult, torch.Tensor]:
     """Mixed-ploidy beam search over a batch of block instances, plus
     the best beam's [G, R] assignments. Inputs as the reference's
     beam_search_batch_mixed (alleles [G, R, S] int8, weights f32,
     num_reads [G], epsilon [G] f32, num_parts [G]); moved to `device`.
     On CUDA the scan and traceback run in K1; on the CPU in plain
-    PyTorch."""
+    PyTorch. `check_windows` as `beam_scan_cuda` takes it."""
     check_no_tf32()
     alleles, weights, num_reads, epsilon, num_parts = _inputs(
         alleles, weights, num_reads, epsilon, num_parts, device)
@@ -456,7 +508,7 @@ def beam_search_traceback(alleles, weights, num_reads, epsilon, num_parts,
               dedup=dedup)
     if alleles.device.type == "cuda":
         return beam_scan_cuda(alleles, weights, num_reads, *_eps(epsilon),
-                              num_parts, **kw)
+                              num_parts, check_windows=check_windows, **kw)
     eps64, epsq, offs, zrows, gmix = _prepare(
         alleles, weights, epsilon, max_alleles, max_ploidy, window, dedup)
     result = beam_scan_plain(alleles, weights, num_reads, eps64, epsq,

@@ -5,10 +5,14 @@ adaptive_sweep -> _sweep_launch/_sweep_pull). Every (block, ploidy)
 instance of a contig group runs as shape-bucketed batches on one device,
 or split over the shards of a block mesh (parallel/mesh.py); each sweep
 level is one chain per bucket: gather -> weights -> beam scan +
-traceback (K1) -> UPEM hill-climb (K4) -> unit-weight MEC stats. The
-stopping rules replay on the host, level by level, so the chosen
-ploidies and partitions equal the reference's sequential early exit
-(graph_processing.rs:198-252).
+traceback (K1) -> UPEM hill-climb (K6 and K4) -> unit-weight MEC stats
+(K6). On a card a level's chains are enqueued without a host wait
+(`_sweep_launch`: uploads from pinned memory, windows checked on the
+host) and pulled once per level and device (`_sweep_pull`), as the
+reference launches each level's jitted chains asynchronously and waits
+in its pull. The stopping rules replay on the host, level by level, so
+the chosen ploidies and partitions equal the reference's sequential
+early exit (graph_processing.rs:198-252).
 
 The pure helpers below are copies of the reference's (which cannot be
 imported: its module pulls in jax).
@@ -26,10 +30,10 @@ import numpy as np
 import torch
 
 from .. import constants, state, timing
-from ..device import check_no_tf32, resolve_device
+from ..device import check_no_tf32, resolve_device, to_host, upload
 from ..kernels import beam as beam_kernel
 from ..kernels.blocktensor import BlockTensor, pack_block, round_up
-from ..kernels.upem_batch import _eval_mec, upem_optimize_device
+from ..kernels.upem_batch import upem_eval, upem_optimize_device
 from ..options import Options
 from ..parallel.mesh import make_block_mesh, run_on_shards, shard_bounds
 from .blocks import (find_reads_in_interval, get_range_with_lengths,
@@ -313,8 +317,8 @@ class BlockDeviceCache:
         """[G, r_pad, s_pad] (alleles, weights) for the given blocks, in
         order (duplicates fine)."""
         dev_a, dev_q = self.dev[key]
-        idx = torch.tensor([self.rows[j] for j in block_ids],
-                           dtype=torch.int64, device=self.device)
+        idx = upload(np.array([self.rows[j] for j in block_ids], np.int64),
+                     self.device)
         return (dev_a.index_select(0, idx).contiguous(),
                 beam_kernel.quals_to_weights(dev_q.index_select(0, idx),
                                              self.phred).contiguous())
@@ -326,33 +330,60 @@ def _sweep_chain(cache: BlockDeviceCache, key, ids, nreads, eps,
     """One sweep level for one dispatch: gather -> weights -> beam +
     traceback -> UPEM -> MEC. Level 1 reduces exactly to the MEC stats
     of the everything-in-part-0 partition (UPEM needs >= 2 parts to
-    move). fused12 (ploidy 2) also returns level 1's stats."""
+    move). fused12 (ploidy 2) also returns level 1's stats. On a card it
+    only enqueues: its windows were checked on the host
+    (`_sweep_launch`)."""
     dev = cache.device
     alleles, weights = cache.gather(key, ids)
-    nr = torch.from_numpy(nreads).to(dev)
-    ep = torch.from_numpy(eps).to(dev)
+    nr = upload(nreads, dev)
+    ep = upload(eps, dev)
     zeros = torch.zeros(alleles.shape[:2], dtype=torch.int32, device=dev)
     if ploidy == 1:
-        return zeros, _eval_mec(alleles, zeros, ep, 1, max_alleles)
+        return zeros, upem_eval("mec", alleles, weights, zeros, ep, 1,
+                                max_alleles)
     nparts = torch.full((alleles.shape[0],), ploidy, dtype=torch.int32,
                         device=dev)
     _result, assigns = beam_kernel.beam_search_traceback(
         alleles, weights, nr, ep, nparts, ploidy, beam_width,
-        max_alleles=max_alleles, window=window, device=dev)
+        max_alleles=max_alleles, window=window, device=dev,
+        check_windows=False)
     best, mec, _diff = upem_optimize_device(
         alleles, weights, assigns.to(torch.int32), nr, ep, ploidy,
         max_alleles=max_alleles, device=dev)
     if fused12:
-        return best, (_eval_mec(alleles, zeros, ep, 1, max_alleles), mec)
+        return best, (upem_eval("mec", alleles, weights, zeros, ep, 1,
+                                max_alleles), mec)
     return best, mec
+
+
+def _dispatch_window(chunk, s_pad: int) -> int:
+    """The sliding compute window of one dispatch of `chunk`'s blocks at
+    s_pad columns, the reference's policy: round_up(span + 128, 256) for
+    the chunk's longest read span (BlockTensor.max_read_span), only for
+    a >= 4x shrink of the site axis, else 0 (full width). A window is
+    checked on the host, block by block, to hold every read, as K1
+    requires (`beam_kernel.check_windows_host`)."""
+    cols = [beam_kernel.read_columns(bt.alleles, bt.num_reads)
+            for _j, bt in chunk]
+    span = max(int((last - first)[last >= 0].max(initial=0)) + 1
+               for first, last in cols)
+    window = round_up(span + 128, 256)
+    if window * 4 > s_pad:
+        return 0
+    for first, last in cols:
+        beam_kernel.check_windows_host(first, last, s_pad, window)
+    return window
 
 
 def _sweep_launch(blocks, options: Options, mesh: List[torch.device],
                   caches: Dict[torch.device, BlockDeviceCache],
                   ploidies) -> list:
-    """Run one wave of chained beam -> UPEM dispatches for every
+    """Enqueue one wave of chained beam -> UPEM dispatches for every
     (block, ploidy in ploidies) instance, per shape bucket, in chunks of
-    the dispatch cap. Results stay on the device until _sweep_pull.
+    the dispatch cap. On a card nothing here waits for it: the results
+    stay on the device until _sweep_pull, and `phase.launch` times the
+    enqueueing only. Each dispatch's windows are checked on the host,
+    from its blocks, before anything is enqueued.
 
     Over a mesh of more than one shard, each dispatch's batch splits into
     len(mesh) contiguous shards (parallel/mesh.py shard_bounds) and each
@@ -378,13 +409,7 @@ def _sweep_launch(blocks, options: Options, mesh: List[torch.device],
             g_cap = max(1, cap_cells // (key[0] * key[1]))
             for lo in range(0, len(members), g_cap):
                 chunk = members[lo:lo + g_cap]
-                # Sliding compute window (same policy as the reference),
-                # one per dispatch: only for a >= 4x shrink of the site
-                # axis.
-                window = round_up(
-                    max(bt.max_read_span() for _j, bt in chunk) + 128, 256)
-                if window * 4 > key[1]:
-                    window = 0
+                window = _dispatch_window(chunk, key[1])
                 for k, (a, b) in enumerate(shard_bounds(len(chunk),
                                                         len(mesh))):
                     if b > a:
@@ -413,21 +438,34 @@ def _sweep_launch(blocks, options: Options, mesh: List[torch.device],
 
 
 def _sweep_pull(pending: list):
-    """Download one wave's refined assignments and MEC stats."""
+    """Download one wave's refined assignments and MEC stats: every
+    result is copied into pinned host memory without a wait, then the
+    host waits once per device, on an event recorded after the copies."""
     pull_t = time.time()
+    hosts, events = [], {}
+    for _members, _ploidy, best, mec in pending:
+        mecs = mec if isinstance(mec, tuple) else (mec,)
+        hosts.append([to_host(x) for x in (best, *mecs)])
+        if best.device.type == "cuda":
+            events[best.device] = None
+    for dev in events:
+        events[dev] = torch.cuda.Event()
+        events[dev].record(torch.cuda.current_stream(dev))
+    for ev in events.values():
+        ev.synchronize()
     refined: Dict[Tuple[object, int], np.ndarray] = {}
     stats: Dict[Tuple[object, int], Tuple[float, float]] = {}
-    for members, ploidy, best, mec in pending:
-        best = best.cpu().numpy()
+    for (members, ploidy, _best, _mec), host in zip(pending, hosts):
+        best, *mecs = (x.numpy() for x in host)
         if ploidy == (1, 2):
-            mec1, mec2 = (m.cpu().numpy() for m in mec)
+            mec1, mec2 = mecs
             for g, (j, bt) in enumerate(members):
                 refined[(j, 1)] = np.zeros(bt.num_reads, np.int32)
                 stats[(j, 1)] = (float(mec1[g, 0]), float(mec1[g, 1]))
                 refined[(j, 2)] = best[g, :bt.num_reads]
                 stats[(j, 2)] = (float(mec2[g, 0]), float(mec2[g, 1]))
             continue
-        mec = mec.cpu().numpy()
+        mec = mecs[0]
         for g, (j, bt) in enumerate(members):
             refined[(j, ploidy)] = best[g, :bt.num_reads]
             stats[(j, ploidy)] = (float(mec[g, 0]), float(mec[g, 1]))

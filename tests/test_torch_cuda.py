@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 same card, bitwise: K1 (beam scan + traceback), K4 (the UPEM move
-function: candidates, sort and walk) and K5 (realignment NW, two alleles
-per DP); the sharded beam and sweep (parallel/mesh.py) against the
-unsharded run, two shards on one card, and on two cards where a machine
-has them; and the port's CLI on the card against the JAX package's
-pipeline on JAX's CPU backend, in one process, on the round's small
-configs.
+function: candidates, sort and walk; with and without its `active`
+mask), K5 (realignment NW, two alleles per DP) and K6 (UPEM move
+evaluation: init, step and unit MEC); the climb on the card against the
+CPU, and a sweep level enqueued without a host wait; the sharded beam
+and sweep (parallel/mesh.py) against the unsharded run, two shards on
+one card, and on two cards where a machine has them; and the port's CLI
+on the card against the JAX package's pipeline on JAX's CPU backend, in
+one process, on the round's small configs.
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -19,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dedup_case, nw_case, windowed_case
-from floria_tpu_torch import entry
+from chip_smoke import dedup_case, nw_case, windowed_case, workload_blocks
+from floria_tpu_torch import entry, state
 from floria_tpu_torch.kernels import _build
 from floria_tpu_torch.kernels import beam as TB
 from floria_tpu_torch.kernels import realign as TR
@@ -29,7 +31,7 @@ from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.phase import local as TL
 from test_beam_pallas import _make
 from test_torch_oracle_configs import SMALL, run_both
-from test_torch_upem import moves_case
+from test_torch_upem import CASES, _batch, moves_case
 
 pytestmark = pytest.mark.cuda
 
@@ -273,6 +275,198 @@ def test_nw_wrapper_counts_launches_and_checks_inputs(dev):
     got = TR.nw_best(q, si, nal, ref_tab, al_tab, 2)
     assert _build.LAUNCHES["nw_best"] == 1
     assert got.device.type == "cuda" and got.dtype == torch.int8
+
+
+def eval_case(G, R, S, P, A, seed):
+    """K6 inputs: reads of random spans with alleles 0..A-1 (a few cells
+    of allele A, which covers but counts for no allele), phred weights
+    (some of qual 0: covered, zero weight), assignments mostly in
+    [0, P) with some -1 and P (out of range), padding rows past
+    num_reads (uncovered, assigned -1), and an epsilon per instance."""
+    rng = np.random.default_rng(seed)
+    alleles = np.full((G, R, S), -1, np.int8)
+    quals = np.zeros((G, R, S), np.uint8)
+    nreads = np.array([R - g % 4 for g in range(G)], np.int32)
+    for g in range(G):
+        for r in range(nreads[g]):
+            s0 = int(rng.integers(0, S))
+            s1 = min(S, s0 + int(rng.integers(1, max(2, S // 2))))
+            alleles[g, r, s0:s1] = rng.integers(0, A, s1 - s0)
+            quals[g, r, s0:s1] = rng.integers(0, 50, s1 - s0)
+    alleles[(alleles >= 0) & (rng.random(alleles.shape) < 0.01)] = A
+    weights = state.phred_table()[quals]
+    assign = rng.integers(0, P, (G, R)).astype(np.int32)
+    assign[rng.random((G, R)) < 0.03] = -1
+    assign[rng.random((G, R)) < 0.02] = P
+    for g in range(G):
+        assign[g, nreads[g]:] = -1
+    eps = rng.choice([0.01, 0.02, 0.03, 0.05], G).astype(np.float32)
+    return alleles, weights, assign, nreads, eps
+
+
+def _eval_kernel_vs_plain(dev, alleles, weights, assign, nreads, eps, P, A):
+    """K6's three modes against upem_eval_plain on the same card. The
+    step runs on instances of four kinds (g % 4): a proposal that
+    improves (accepted), one that is worse (rejected), one equal to
+    `best` (unchanged) and an inactive instance. Returns the flags after
+    the step."""
+    al, wt, asg, nr, ep = (torch.as_tensor(x).to(dev) for x in (
+        alleles, weights, assign, nreads, eps))
+    got = TU.upem_eval_cuda("init", al, wt, asg, ep, P, A)
+    torch.cuda.synchronize()
+    want = TU.upem_eval_plain("init", al, wt, asg, ep, P, A)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    mec = TU.upem_eval_cuda("mec", al, wt, asg, ep, P, A)
+    assert torch.equal(mec, TU.upem_eval_plain("mec", al, wt, asg, ep, P, A))
+
+    refined = TU.upem_optimize_device(al, wt, asg, nr, ep, P, A,
+                                      device=dev)[0]
+    kind = torch.arange(len(assign), device=dev) % 4
+    best = torch.where((kind == 1)[:, None] | (kind == 2)[:, None], refined,
+                       asg).contiguous()
+    proposal = torch.where((kind == 1)[:, None], asg, refined).contiguous()
+    diff, score, _a = TU.upem_eval_plain("init", al, wt, best, ep, P, A)
+    active = kind != 3
+    states = [tuple(x.clone() for x in (best, score, diff, active))
+              for _ in range(2)]
+    TU.upem_eval_cuda("step", al, wt, proposal, ep, P, A, states[0])
+    torch.cuda.synchronize()
+    TU.upem_eval_plain("step", al, wt, proposal, ep, P, A, states[1])
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+    moved = (refined != asg).any(dim=1)
+    assert torch.equal(states[1][3], (kind == 0) & moved)
+    return states[1][3]
+
+
+@pytest.mark.parametrize("path", ["shared", "scratch"])
+@pytest.mark.parametrize("A", [2, 3, 4])
+@pytest.mark.parametrize("P", [2, 3, 4, 5, 6])
+def test_eval_kernel_matches_plain(dev, P, A, path, monkeypatch):
+    """K6 at P = 2..6 and A = 2..4, its counts in shared memory and (the
+    same kernel, forced) in a device scratch."""
+    if path == "scratch":
+        monkeypatch.setattr(TU, "eval_in_shared", lambda *_a: False)
+    else:
+        assert TU.eval_in_shared(256, P, A, dev)
+    # A step accepts somewhere within a few seeds (a climb from a random
+    # assignment may not move at all).
+    accepted = False
+    for seed in range(10 * P + A, 10 * P + A + 4):
+        args = eval_case(8, 48, 256, P, A, seed=seed)
+        accepted = bool(_eval_kernel_vs_plain(dev, *args, P, A).any())
+        if accepted:
+            break
+    assert accepted
+
+
+def test_eval_kernel_scratch_when_counts_exceed_shared_memory(dev):
+    """A column count too large for shared memory (S = 2048 at P = 6,
+    A = 4: 432 KB) takes the scratch path without forcing."""
+    assert not TU.eval_in_shared(2048, 6, 4, dev)
+    assert TU.eval_in_shared(2048, 5, 2, dev)
+    _eval_kernel_vs_plain(dev, *eval_case(4, 24, 2048, 6, 4, seed=5), 6, 4)
+
+
+def test_eval_wrapper_counts_launches_and_checks_inputs(dev):
+    al, wt, asg, _nr, ep = (torch.as_tensor(x).to(dev) for x in eval_case(
+        2, 16, 64, 2, 2, seed=1))
+    _build.LAUNCHES.clear()
+    for bad in ((al.long(), wt, asg, ep), (al, wt.double(), asg, ep),
+                (al, wt, asg.long(), ep), (al, wt, asg, ep[:1]),
+                (al, wt, asg.t().contiguous().t(), ep),
+                (al.cpu(), wt, asg, ep)):
+        with pytest.raises(ValueError):
+            TU.upem_eval_cuda("init", *bad, 2, 2)
+    with pytest.raises(ValueError):
+        TU.upem_eval_cuda("climb", al, wt, asg, ep, 2, 2)
+    diff, score, active = TU.upem_eval_cuda("init", al, wt, asg, ep, 2, 2)
+    with pytest.raises(ValueError):
+        TU.upem_eval_cuda("step", al, wt, asg, ep, 2, 2,
+                          (asg, score, diff, active.to(torch.uint8)))
+    assert _build.LAUNCHES["upem_eval"] == 1
+    TU.upem_eval("step", al, wt, asg, ep, 2, 2, (asg, score, diff, active))
+    TU.upem_eval("mec", al, wt, asg, ep, 2, 2)
+    assert _build.LAUNCHES["upem_eval"] == 3
+
+
+@pytest.mark.parametrize("P,R", [(2, 48), (3, 48), (5, 48), (5, 6000)])
+def test_masked_move_kernel_matches_plain(dev, P, R):
+    """K4 with an `active` mask (R = 6000 at P = 5: the scratch path):
+    inactive instances propose their assignment unchanged."""
+    assign, diff, nreads = moves_case(6, R, P, 3 * P + R, levels=40)
+    t = [torch.as_tensor(x).to(dev) for x in (assign, diff, nreads)]
+    active = torch.tensor([True, False, True, True, False, True], device=dev)
+    got = TU.apply_moves_cuda(*t, active)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TU.apply_moves_plain(*t, active))
+    assert torch.equal(got[~active], t[0][~active])
+    assert torch.equal(got[active], TU.apply_moves_cuda(*t)[active])
+    assert not torch.equal(got[active], t[0][active])
+
+
+@pytest.mark.parametrize("ploidy,seed", CASES + [(5, 60), (6, 61)])
+def test_climb_on_the_card_matches_the_cpu(dev, ploidy, seed):
+    alleles, weights, assign, nreads, eps = _batch(ploidy, seed, G=6)
+    want = TU.upem_optimize_device(alleles, weights, assign, nreads, eps,
+                                   ploidy, max_alleles=2, device="cpu")
+    _build.LAUNCHES.clear()
+    got = TU.upem_optimize_device(alleles, weights, assign, nreads, eps,
+                                  ploidy, max_alleles=2, device=dev)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    n = TU.constants.NUM_ITER_OPTIMIZE
+    assert _build.LAUNCHES["upem_moves"] == n
+    assert _build.LAUNCHES["upem_eval"] == n + 2
+
+
+def _deep_blocks():
+    """Blocks of up to five strains in config4's most common dispatch
+    bucket (R = 192, S = 1024; it reaches levels 2-5 there), rows cut to
+    each block's live reads."""
+    from floria_tpu_torch.entry import _synth_blocks
+
+    return [(j, dataclasses.replace(
+        bt, alleles=bt.alleles[:bt.num_reads],
+        weights=bt.weights[:bt.num_reads], quals=bt.quals[:bt.num_reads],
+        frag_ids=bt.frag_ids[:bt.num_reads]))
+        for j, bt in _synth_blocks(10, 192, 1024, 5, seed=8)]
+
+
+@pytest.mark.parametrize("which", ["workload", "deep"])
+def test_sweep_level_launch_makes_no_host_wait(dev, which, monkeypatch):
+    """One sweep level enqueued (`_sweep_launch`) under sync debug mode
+    "error": no call may wait on the card. `_sweep_pull` then waits once
+    (one event) and gives the CPU route's results."""
+    from floria_tpu_torch.options import Options
+
+    blocks = workload_blocks() if which == "workload" else _deep_blocks()
+    opts = Options(epsilon=0.02, max_ploidy=6)
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    caches = {card: TL.BlockDeviceCache(blocks, device=card)}
+    cpu_caches = {cpu: TL.BlockDeviceCache(blocks, device=cpu)}
+    waits = []
+    sync = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda ev: (waits.append(ev), sync(ev))[1])
+    levels = [(1, 2), 3] if which == "workload" else [3, 5]
+    for level in levels:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = TL._sweep_launch(blocks, opts, [card], caches, [level])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n = len(waits)
+        refined, stats = TL._sweep_pull(pending)
+        assert len(waits) == n + 1
+        if which == "deep":
+            want = TL._sweep_pull(TL._sweep_launch(blocks, opts, [cpu],
+                                                   cpu_caches, [level]))
+            assert stats == want[1]
+            for k, v in want[0].items():
+                assert np.array_equal(refined[k], v)
 
 
 def _beam_sharded_vs_unsharded(mesh, G=70):
