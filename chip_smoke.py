@@ -10,35 +10,44 @@ each; any failure raises (exit code != 0):
   2. build    - nvcc builds the kernels from floria_tpu_torch/csrc/ while
                 g++ builds the port's copy of the native C++ library
                 from native/ (floria_tpu_torch/native.py); ptxas's
-                registers and spills per kernel;
+                registers and spills per kernel; the run fails if K6's
+                climb kernel or its evaluation kernel spills;
   3. kernels  - K1 (beam scan) against its plain PyTorch version, bitwise,
                 at G=8 R=320 S=2048 (mixed ploidies 2..5, K1 in clusters
                 of 8 CTAs; K1 also against the plain scan on the CPU),
-                timed, plus a windowed and a dedup case; K4 (the whole
-                UPEM move function, (assign, diff, num_reads, active) ->
+                timed, plus a windowed and a dedup case; K4 (the UPEM
+                move function, (assign, diff, num_reads, active) ->
                 proposal) against its plain version on the sweep's first
-                UPEM iteration, timed; K6 (the UPEM move evaluation:
-                init, step, unit MEC) against its plain version at the
-                sweep's P=5 climb, timed, and the whole climb (K6 and K4
-                launches, no host wait) against the host-loop route (the
-                torch evaluation and a wait on `active.any()` per
-                iteration), equal results, both timed;
+                UPEM iteration, timed; K6 at the sweep's P=5 climb: its
+                evaluation kernel's modes (init, step, unit MEC) against
+                their plain version, and its climb kernel (the whole climb in
+                one launch, clusters of 8 CTAs here) against
+                upem_climb_plain, bitwise, both timed; the whole climb
+                three ways with equal results, timed in turns
+                (`climb_ab`): the climb kernel, the launch route (K6
+                init, 20 x (K4 + K6 step), K6 mec) and the host loop
+                (the torch evaluation and a wait per iteration);
   4. e2e      - the port's CLI (`--device cuda:0`: phases 3-7 use one card
                 on any machine) on bench.py's `ecoli2` community (1 Mbp,
                 2 strains, 50k SNPs, 50x per strain): a first run (its
-                kernel launch counts), a second run (its K1 dispatches,
-                K5 partitions and K4 calls recorded; every sweep level's
-                launch under sync debug mode "error", so a host wait
-                there fails the run, and each pull's host waits
+                kernel launch counts: K1, K5 and K6, never K4), a second
+                run (its K1 dispatches, K5 partitions and climbs
+                recorded; exactly one K1 and one K6 climb per dispatch
+                plus one K6 ploidy-1 MEC per fused level-2 dispatch, the
+                two K6 kernels counted apart; every sweep
+                level's launch under sync debug mode "error", so a host
+                wait there fails the run, and each pull's host waits
                 counted), a third run under torch.profiler (the card's
                 busy share) and a `--device cpu` run; all four must
                 write the same bytes;
-  5. dispatch - K1, K4 and K6 against their plain versions on the card at
-                the main path's own largest beam dispatch, recorded in
-                phase 4, and on its blocks at the next ploidy, timed, with
-                the whole climb against the host-loop route there; K4
-                also at the later UPEM iterations that apply moves (the
-                main path's, and those of UPEM loops on the next-ploidy
+  5. dispatch - K1, K4 and K6 (modes and climb kernel) against their
+                plain versions on the card at the main path's own largest
+                beam dispatch, recorded in phase 4, and on its blocks at
+                the next ploidy, timed, with `climb_ab` there; K6's
+                ploidy-1 MEC (the evaluation kernel's mec mode, as the
+                fused level 2 launches it) at that dispatch, timed; K4 also at
+                the later UPEM iterations that apply moves (the launch
+                route's on the main path's climbs, on the next-ploidy
                 dispatch and on phase 3's sweep), with their `active`
                 masks, the one that moves the most reads timed;
   6. realign  - K5 (the realignment NW) against its plain version on the
@@ -59,19 +68,20 @@ each; any failure raises (exit code != 0):
                 this process (first, second, traced), each held to the
                 JAX CLI's hashes; stage times, launches, peak device
                 memory, the card's busy share (traced); the second run's
-                beam dispatches per sweep level, K4 calls that applied a
-                move, its climbs' inputs, and its levels launched under
-                sync debug mode "error" with each pull's host waits
-                counted; K4 and K6 launch 20 and 22 times per dispatch;
-                the outputs' vartig accuracy and haploset purity against
-                the simulated truth, equal to the golden's;
+                beam dispatches per sweep level, its climbs and the
+                instances they moved, its climbs' inputs, and its levels
+                launched under sync debug mode "error" with each pull's
+                host waits counted; one K1 and one K6 per dispatch, one
+                more K6 per fused level-2 dispatch, no K4; the outputs'
+                vartig accuracy and haploset purity against the
+                simulated truth, equal to the golden's;
  7d. tools    - vartig-dump, haplotagging (HAPQ >= 0) and a frags.txt
                 round trip of get_frags_from_bam's fragments on long3,
                 each output held to the JAX functions' hash;
- 7e. upem_climb (run between 7c and 7d) - K6 against its plain version
-                at every climb config4's second run recorded; at the
-                largest dispatch of each level K6 timed and the whole
-                climb against the host-loop route;
+ 7e. upem_climb (run between 7c and 7d) - K6's climb kernel and its
+                modes against their plain versions at every climb
+                config4's second run recorded; at the largest dispatch of
+                each level both timed and `climb_ab`;
   8. parallel - the parallel layer (floria_tpu_torch/parallel/), two
                 shards on the one card (one shard per card where the
                 machine has more): (a) K1 through beam_search_sharded (the
@@ -89,31 +99,45 @@ each; any failure raises (exit code != 0):
                 (scripts/multihost_bench.py `build_sim`: 500 contigs of 60
                 kbp, 2 strains, 300 SNPs, 8x per strain, 6 kbp reads): the
                 same bytes, each rank's launch counts (every rank must
-                launch K1), both wall times;
+                launch K1 and K6, none K4), both wall times;
   9. summary  - K1's and K4's times at the `ecoli2` dispatch (P=2, P=3)
                 and on the sweep, and K4's at the timed later iteration,
                 beside their bounds and the `ecoli2` launch counts; K6's
-                (`k6_summary`) with its launches per `ecoli2`, `multi500`
-                and `config4` run, the climbs against the host-loop
-                route, `phase.launch` / `phase.wait`, host waits per
+                (`k6_summary`): the climb kernel's times, whole call and
+                alone, beside its bound and its per-pass figure, the
+                evaluation kernel's init times (one evaluation alone) and
+                its ploidy-1 MEC's, launches per
+                `ecoli2`, `multi500` and `config4` run, the climbs three
+                ways, `phase.launch` / `phase.wait`, host waits per
                 level, idle shares and peak memory; the run fails if any
                 jax or `floria_tpu` module is loaded.
-With --ab-inputs it also saves the inputs of every timed K4 and K5 case,
-for scripts/torch_kernel_parent_ab.py to time an earlier tree's calls on
-them.
-Times are medians of 3 (K4, K6: 20; climbs: 5) after one warm run of the
-whole call,
-wrapper included, CUDA-synchronized (`kernel_ms`, the kernel line's
-`ms`); beside them `kernel_device_ms` is the kernel alone on the card,
-from torch.profiler's CUDA activity. Every record that holds a time
-carries the card's name and power limit (`card`). Each kernel's bound
-is computed from this run's inputs: the larger of the bytes the function must move (each input read once, each
+With --ab-inputs it also saves the inputs of every timed K4, K5 and climb
+case, for scripts/torch_kernel_parent_ab.py to time an earlier tree's
+calls on them.
+Times are medians of 3 (K4, K6: 20; climbs in `climb_ab`: 5) after one
+warm run of the whole call, wrapper included, CUDA-synchronized
+(`kernel_ms`, the kernel line's `ms`); beside them `kernel_device_ms` is
+the kernel alone on the card, from torch.profiler's CUDA activity. Every
+record that holds a time carries the card's name and power limit
+(`card`). Each kernel's bound is computed from this run's inputs: the
+larger of the bytes the function must move (each input read once, each
 output written once) over 3.35 TB/s and its operations over 67 T/s (the
 H100 SXM's HBM rate and its f32 rate outside the tensor cores, NVIDIA's
 data sheet; integer operations are counted at that rate, which makes the
-bound a lower one). No single PyTorch call computes any of the four
-kernels, so `library_ms` is null. The last lines are the kernel table,
-the nvidia-smi line and {"ok": true, "device": {...}}.
+bound a lower one). The climb kernel's (`k6_climb_once_bound`) reads
+its inputs once and writes its outputs once, with the operations of
+every evaluation the climb made on these inputs; beside it,
+`k6_climb_bound` (`pass_bound_ms`) counts the bytes of every pass the
+climb makes over the cells (1 + E evaluations and the MEC pass), which
+may come from L2. No single PyTorch call computes any of the kernels,
+so `library_ms` is null. The kernel line has a row per kernel: K6's
+climb kernel (`upem_climb`) at the `ecoli2` dispatch, launched once per
+climb, and its evaluation kernel (`upem_eval`) in the ploidy-1 MEC at
+that dispatch's shape, launched once per fused level-2 dispatch; K4's
+launches on the main path are 0 (its body runs inside the climb
+kernel). The last lines
+are the kernel table, the nvidia-smi line and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -278,10 +302,12 @@ def timed(fn, reps=3):
 
 
 def kernel_device_ms(fn, kernel: str, reps=10):
-    """Device time per call of `fn` of the CUDA kernels whose name holds
-    `kernel`, from torch.profiler's CUDA activity over `reps` calls after
-    one warm call: the kernel alone, without the wrapper's host work or
-    the launch. None when the trace shows no such kernel."""
+    """Device time per launch of the CUDA kernels whose name holds
+    `kernel` (each `fn` here launches one), from torch.profiler's CUDA
+    activity over `reps` calls after one warm call: the kernel alone,
+    without the wrapper's host work or the launch. The mean over the
+    launches the trace holds (a trace may miss some). None when it
+    shows no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -293,7 +319,23 @@ def kernel_device_ms(fn, kernel: str, reps=10):
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel in e.name]
-    return sum(spans) / reps * 1e-3 if spans else None
+    return sum(spans) / len(spans) * 1e-3 if spans else None
+
+
+def event_ms(fn, reps=20):
+    """Milliseconds per call of `fn` between two CUDA events around
+    `reps` calls enqueued back to back, after one warm call: the card's
+    time per call when the host enqueues faster than the card runs, else
+    the host's."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -459,9 +501,9 @@ def check_beam(dev, alleles, weights, nreads, eps, nparts, P, W=10, A=2,
     return err, k_s, p_s, (al, wt, nr, ep, asg), bnd
 
 
-# The inputs of every timed K4 and K5 case, by kernel and label, kept for
-# --ab-inputs.
-AB_CASES = {"upem_moves": {}, "nw_best": {}}
+# The inputs of every timed K4, K5 and climb case, by the call timed and
+# label, kept for --ab-inputs.
+AB_CASES = {"upem_moves": {}, "nw_best": {}, "upem_optimize_device": {}}
 
 
 def check_moves(assign, diff, nr, P, label="", timing=True, active=None):
@@ -524,59 +566,65 @@ def check_first_moves(ups, P, A=2, label=""):
 
 class MovesRecorder:
     """Keeps the inputs and outputs of every move-function call (K4) of
-    the UPEM loops run while active, with each call's iteration index in
-    its loop. The inputs are copied: the climb refines its assignment
-    and distances in place."""
+    the climbs' launch route run while active, with each call's round in
+    its climb. The inputs are copied: the climb refines its assignment and
+    distances in place."""
 
     def __init__(self):
+        from floria_tpu_torch import constants
         from floria_tpu_torch.kernels import upem_batch
-        from floria_tpu_torch.phase import local
 
-        self.module, self.local = upem_batch, local
+        self.module = upem_batch
+        self.rounds = constants.NUM_ITER_OPTIMIZE  # calls per climb
         self.calls = []
-        self._it = 0
 
     def __enter__(self):
-        self._apply, self._upem = self.module.apply_moves, \
-            self.local.upem_optimize_device
+        self._apply = self.module.apply_moves
 
         def apply_moves(assign, diff, num_reads, active=None):
             out = self._apply(assign, diff, num_reads, active)
-            self.calls.append((self._it, assign.clone(), diff.clone(),
-                               num_reads, None if active is None
-                               else active.clone(), out))
-            self._it += 1
+            self.calls.append((len(self.calls), assign.clone(),
+                               diff.clone(), num_reads, None
+                               if active is None else active.clone(), out))
             return out
 
-        def upem(*args, **kw):
-            self._it = 0
-            return self._upem(*args, **kw)
-
         self.module.apply_moves = apply_moves
-        self.local.upem_optimize_device = upem
         return self
 
     def __exit__(self, *exc):
         self.module.apply_moves = self._apply
-        self.local.upem_optimize_device = self._upem
 
     def later_with_moves(self, label):
-        """The calls past a loop's first iteration that applied moves, as
-        (label iteration k, (assign, diff, num_reads, active,
-        proposal))."""
-        return [(f"{label} iteration {c[0]}", c[1:]) for c in self.calls
-                if c[0] >= 1 and not torch.equal(c[5], c[1].to(c[5].dtype))]
+        """The calls past a climb's first round that applied moves, as
+        (label round k, (assign, diff, num_reads, active, proposal))."""
+        n = self.rounds
+        return [(f"{label} iteration {c[0] % n}", c[1:]) for c in self.calls
+                if c[0] % n >= 1 and not torch.equal(c[5],
+                                                     c[1].to(c[5].dtype))]
 
 
-def upem_loop_moves(dev, ups, P, A, label):
-    """Runs the UPEM loop at ploidy P on `ups` = check_beam's (alleles,
-    weights, num_reads, eps, assign) and returns (its number of move
-    calls, its later calls that applied moves)."""
+def climb_launch_route(alleles, weights, assign0, num_reads, epsilon, P,
+                       A):
+    """The climb as launches, the port's route before the climb kernel:
+    K6 init, NUM_ITER_OPTIMIZE rounds of K4 (masked by the instances'
+    `active` flags) and K6 step, K6 mec, with no host wait; composed from
+    the kernels' wrappers. The second arm of `climb_ab`. Returns (best,
+    mec, diff in weight units)."""
     from floria_tpu_torch.kernels import upem_batch as tu
 
+    best, mec, diff = tu._climb(alleles, weights, assign0.clone(),
+                                num_reads, epsilon, P, A, early_exit=False)
+    return best, mec, diff * tu.INV_WEIGHT_SCALE
+
+
+def upem_loop_moves(ups, P, A, label):
+    """Runs the climb's launch route at ploidy P on `ups` = check_beam's
+    (alleles, weights, num_reads, eps, assign) and returns (its number of
+    move calls, its later calls that applied moves)."""
     al, wt, nr, ep, asg = ups
     with MovesRecorder() as rec:
-        tu.upem_optimize_device(al, wt, asg, nr, ep, P, A, device=dev)
+        climb_launch_route(al, wt, asg.to(torch.int32).contiguous(),
+                           nr.to(torch.int32).contiguous(), ep, P, A)
     return len(rec.calls), rec.later_with_moves(label)
 
 
@@ -611,16 +659,109 @@ def k6_bound(alleles, P):
     return bound(cells * 5 + G * R * (4 + 8 * P) + G * 8, cells * (P + 2))
 
 
+def k6_climb_ops(alleles, evaluations, P):
+    """The operations of the climb on these inputs: per instance, 1 + E
+    full evaluations of about P + 2 operations per cell (E, the rounds
+    that evaluated a changed proposal, counted by upem_climb_plain on the
+    same inputs) and the unit MEC pass, two per cell."""
+    G, R, S = alleles.shape
+    runs = int((1 + evaluations).sum())
+    return runs * R * S * (P + 2) + G * R * S * 2
+
+
+def k6_climb_once_bound(alleles, evaluations, P):
+    """The climb kernel's bound on these inputs: each input read once
+    (allele 1 B and weight 4 B per cell, assign0 4 B per read, num_reads
+    and epsilon 4 B per instance), each output written once (best 4 B
+    per read, diff 8 B per read and part, mec 16 B per instance), and
+    the operations of every evaluation it made (k6_climb_ops)."""
+    G, R, S = alleles.shape
+    nbytes = G * R * S * 5 + G * R * (4 + 4 + 8 * P) + G * (8 + 16)
+    return bound(nbytes, k6_climb_ops(alleles, evaluations, P))
+
+
+def k6_climb_bound(alleles, evaluations, P):
+    """The climb's per-pass figure, not a bound on the kernel: the bytes
+    of every pass it makes over the cells, 1 + E full evaluations
+    (k6_bound's bytes of one instance) and the unit MEC pass (each
+    cell's allele, 1 B), as if none came from L2."""
+    G, R, S = alleles.shape
+    cells = R * S
+    one = cells * 5 + R * (4 + 8 * P) + 8
+    runs = int((1 + evaluations).sum())
+    return bound(runs * one + G * cells,
+                 k6_climb_ops(alleles, evaluations, P))
+
+
+def k6_mec_bound(alleles):
+    """K6's bound for the unit MEC of every instance (mode "mec"): each
+    cell's allele (1 B), each read's assignment (4 B) and each epsilon
+    read once, (bases, errors) written once; two operations per cell."""
+    G, R, S = alleles.shape
+    return bound(G * R * S + G * R * 4 + G * (4 + 16), 2 * G * R * S)
+
+
+def check_climb(ups, P, A, label, timing=False):
+    """K6's climb kernel (the whole climb in one launch) against
+    upem_climb_plain on the same card, bitwise on best, mec and diff, at
+    a climb's inputs `ups` = (alleles, weights, num_reads, eps, assign0).
+    With `timing`: the kernel's whole call (20 runs), the kernel alone
+    and the plain version. Returns (max_abs_err, kernel_s, plain_s,
+    (bound_ms, bound_by), record)."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    al, wt, nr, ep, asg = ups
+    asg = asg.to(torch.int32).contiguous()
+    nr = nr.to(torch.int32).contiguous()
+    G, R, S = al.shape
+    evals = torch.zeros(G, dtype=torch.int64, device=al.device)
+    want = tu.upem_climb_plain(al, wt, asg, nr, ep, P, A, evaluations=evals)
+    got = tu.upem_climb_cuda(al, wt, asg, nr, ep, P, A)
+    errs = [max_abs_diff(a, b) for a, b in zip(want, got)]
+    if max(errs) != 0.0 or not all(torch.equal(a, b)
+                                   for a, b in zip(want, got)):
+        raise AssertionError(f"climb kernel {label} differs from "
+                             f"upem_climb_plain (best, mec, diff: {errs})")
+    bnd = k6_climb_once_bound(al, evals, P)
+    sms, limit = tu.card(al.device)
+    C, lay, shared, _arr = tu.climb_plan(G, R, S, P, A, sms, limit)
+    rec = {"phase": "kernels", "kernel": "upem_climb", "case": label,
+           "G": G, "R": R, "S": S, "P": P, "A": A, "cluster": C,
+           "shared_memory": shared, "region_bytes": lay.head + lay.stride,
+           "evaluations": int((1 + evals).sum()),
+           "rounds_max": int(evals.max()),
+           "moved_instances": int((got[0] != asg).any(dim=1).sum()),
+           "bitwise_equal": ["best", "mec", "diff"],
+           "bound_ms": bnd[0], "bound_by": bnd[1],
+           "pass_bound_ms": k6_climb_bound(al, evals, P)[0]}
+    k_s = p_s = None
+    if timing:
+        def kernel():
+            return tu.upem_climb_cuda(al, wt, asg, nr, ep, P, A)
+
+        k_s = timed(kernel, reps=20)
+        p_s = timed(lambda: tu.upem_climb_plain(al, wt, asg, nr, ep, P, A))
+        rec.update(
+            kernel_ms=k_s * 1e3, plain_ms=p_s * 1e3,
+            kernel_device_ms=kernel_device_ms(kernel, "upem_climb_kernel"),
+            kernel_event_ms=event_ms(kernel))
+        AB_CASES["upem_optimize_device"][label] = (
+            *(x.cpu() for x in (al, wt, asg, nr, ep)), P, A)
+    emit(rec)
+    return 0.0, k_s, p_s, bnd, rec
+
+
 def check_eval(ups, P, A, label, timing=False):
-    """K6 against its plain version on the card, bitwise, at a climb's
-    own inputs `ups` = (alleles, weights, num_reads, eps, assign0): init
+    """K6's evaluation kernel against its plain version on the card,
+    bitwise, at a climb's own inputs `ups` = (alleles, weights,
+    num_reads, eps, assign0): init
     (the distances and score of assign0); one step over three kinds of
     instance (g % 3): the climb's first proposal (K4 on init's result),
     a worse proposal (assign0 against the climb's result) and an
     unchanged one; and the unit MEC of assign0. With `timing`, K6's init
     call (a full evaluation of every instance) and its plain version are
-    timed. Returns (max_abs_err, kernel_s, plain_s, (bound_ms,
-    bound_by))."""
+    timed (the redesigned evaluation alone). Returns (max_abs_err,
+    kernel_s, plain_s, (bound_ms, bound_by), kernel_device_ms)."""
     from floria_tpu_torch.kernels import upem_batch as tu
 
     al, wt, nr, ep, asg = ups
@@ -662,14 +803,49 @@ def check_eval(ups, P, A, label, timing=False):
             "upem_eval_kernel")
     emit({"phase": "kernels", "kernel": "upem_eval", "case": label,
           "G": G, "R": R, "S": S, "P": P, "A": A,
-          "shared_memory": tu.eval_in_shared(S, P, A, al.device),
+          "shared_memory": tu.eval_in_shared(R, S, P, A, al.device),
           "step_accepted": int(states[1][3].sum()),
           "step_instances": G, "bitwise_equal": ["init", "step", "mec"],
           "kernel_ms": None if k_s is None else k_s * 1e3,
           "kernel_device_ms": dev_ms,
           "plain_ms": None if p_s is None else p_s * 1e3,
           "bound_ms": bnd[0], "bound_by": bnd[1]})
-    return err, k_s, p_s, bnd
+    return err, k_s, p_s, bnd, dev_ms
+
+
+def check_mec1(ups, A, label):
+    """K6's evaluation kernel in the ploidy-1 MEC as the fused 1+2 sweep
+    level launches it (mode "mec", P = 1, every row in part 0) at a
+    dispatch's inputs `ups` (as check_eval's), against its plain version,
+    bitwise; timed (20 runs), alone and the plain version. Returns
+    (max_abs_err, kernel_s, plain_s, (bound_ms, bound_by),
+    kernel_device_ms)."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    al, wt, _nr, ep, _asg = ups
+    zeros = torch.zeros(al.shape[:2], dtype=torch.int32, device=al.device)
+    G, R, S = al.shape
+
+    def kernel():
+        return tu.upem_eval_cuda("mec", al, wt, zeros, ep, 1, A)
+
+    def plain():
+        return tu.upem_eval_plain("mec", al, wt, zeros, ep, 1, A)
+
+    err = max_abs_diff(plain(), kernel())
+    if err != 0.0:
+        raise AssertionError(f"K6 ploidy-1 MEC {label} differs from its "
+                             f"plain version (max abs {err})")
+    bnd = k6_mec_bound(al)
+    k_s, p_s = timed(kernel, reps=20), timed(plain, reps=20)
+    dev_ms = kernel_device_ms(kernel, "upem_eval_kernel")
+    emit({"phase": "kernels", "kernel": "upem_eval", "case": label,
+          "mode": "mec", "G": G, "R": R, "S": S, "P": 1, "A": A,
+          "shared_memory": tu.eval_in_shared(R, S, 1, A, al.device),
+          "bitwise_equal": ["mec"], "kernel_ms": k_s * 1e3,
+          "kernel_device_ms": dev_ms, "kernel_event_ms": event_ms(kernel),
+          "plain_ms": p_s * 1e3, "bound_ms": bnd[0], "bound_by": bnd[1]})
+    return err, k_s, p_s, bnd, dev_ms
 
 
 def climb_host_loop(alleles, weights, assign0, num_reads, epsilon, P, A):
@@ -702,41 +878,55 @@ def climb_host_loop(alleles, weights, assign0, num_reads, epsilon, P, A):
 
 
 def climb_ab(ups, P, A, label):
-    """The whole climb at one dispatch's inputs `ups` (as check_eval's):
-    the port's route (K6 and K4 launches, no host wait) against
-    climb_host_loop, equal results, both timed in this call in turns
-    (host loop, port, port, host loop), plus the port route's enqueue
-    time on the host clock. Returns the record."""
+    """The whole climb at one dispatch's inputs `ups` (as check_eval's),
+    three arms with equal results, timed in turns in this call (host
+    loop, launch route, kernel, kernel, launch route, host loop): the
+    port's route, one launch of K6's climb kernel (`upem_optimize_device`
+    on the card); the launch route (climb_launch_route: K6 init, 20 x
+    (K4 + K6 step), K6 mec); and climb_host_loop. Also the two card
+    routes' enqueue time on the host clock. Returns the record."""
     from floria_tpu_torch.kernels import upem_batch as tu
 
     al, wt, nr, ep, asg = ups
     asg = asg.to(torch.int32).contiguous()
     nr = nr.to(torch.int32).contiguous()
 
-    def port():
+    def kernel():
         return tu.upem_optimize_device(al, wt, asg, nr, ep, P, A,
                                        device=al.device)
+
+    def route():
+        return climb_launch_route(al, wt, asg, nr, ep, P, A)
 
     def host_loop():
         return climb_host_loop(al, wt, asg, nr, ep, P, A)
 
-    got, (*want, iters) = port(), host_loop()
-    for name, a, b in zip(("best", "mec", "diff"), want, got):
-        if not torch.equal(a, b):
-            raise AssertionError(f"climb {label}: {name} differs from the "
-                                 "host-loop route")
-    t = [timed(f, reps=5) * 1e3 for f in (host_loop, port, port, host_loop)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    port()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
+    got, routed, (*want, iters) = kernel(), route(), host_loop()
+    for name, a, b, c in zip(("best", "mec", "diff"), want, got, routed):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"climb {label}: {name} differs between "
+                                 "the kernel, the launch route and the "
+                                 "host loop")
+    t = [timed(f, reps=5) * 1e3
+         for f in (host_loop, route, kernel, kernel, route, host_loop)]
+    enqueue = {}
+    for name, f in (("kernel", kernel), ("launch_route", route)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f()
+        enqueue[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
     G, R, S = al.shape
     rec = {"phase": "upem_climb", "case": label, "G": G, "R": R, "S": S,
            "P": P, "host_loop_iterations": iters,
            "moved_instances": int((got[0] != asg).any(dim=1).sum()),
-           "equal_to_host_loop": True, "climb_ms": t[1:3],
-           "host_loop_ms": [t[0], t[3]], "climb_enqueue_ms": enqueue_ms}
+           "equal": ["kernel", "launch_route", "host_loop"],
+           "climb_ms": t[2:4], "launch_route_ms": [t[1], t[4]],
+           "host_loop_ms": [t[0], t[5]],
+           "climb_enqueue_ms": enqueue["kernel"],
+           "launch_route_enqueue_ms": enqueue["launch_route"]}
+    if max(rec["climb_ms"]) > min(rec["launch_route_ms"]):
+        rec["kernel_slower_than_launch_route"] = True
     emit(rec)
     return rec
 
@@ -909,9 +1099,11 @@ def device_busy_s(prof) -> float:
 def e2e_ecoli2(tmp):
     """The port's CLI on bench.py's ecoli2 community: first, second
     (every sweep level's launch under sync debug mode "error", its
-    pull's host waits counted), traced and CPU runs, byte-equal. Returns
-    (launches of the first run, the second run's recorded dispatches,
-    its recorded move calls, {run: record})."""
+    pull's host waits counted; its launches exactly one K1 and one K6
+    climb per dispatch, one K6 MEC per fused level-2 dispatch, no K4),
+    traced and CPU runs, byte-equal. Returns (launches of the first run,
+    the second run's recorded dispatches, its recorded climbs, {run:
+    record})."""
     from floria_tpu_torch import timing
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.sim.simulate import SimConfig, simulate
@@ -955,17 +1147,25 @@ def e2e_ecoli2(tmp):
     rec["launches"] = launches
     rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     emit(rec)
-    for k in ("beam_scan", "upem_moves", "nw_best", "upem_eval"):
-        if launches.get(k, 0) <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the "
-                                 f"ecoli2 run: {launches}")
+    assert_launches("ecoli2 first run", launches)
+    if launches.get("nw_best", 0) <= 0:
+        raise AssertionError(f"the ecoli2 run launched no K5: {launches}")
     recs = {"first": rec}
 
-    with DispatchRecorder() as recorder, MovesRecorder() as moves, \
-            SyncCheck() as sync:
+    _build.LAUNCHES.clear()
+    with DispatchRecorder() as recorder, SweepCounter() as counter, \
+            ClimbRecorder() as climbs, SyncCheck() as sync:
         rec, second = one_run("second")
+    rec["launches"] = dict(_build.LAUNCHES)
     rec["sync_check"] = sync.summary()
+    rec.update(counter.summary())
     emit(rec)
+    assert_launches("ecoli2 second run", rec["launches"],
+                    counter.expected_launches())
+    if {k: v for k, v in rec["launches"].items() if v} != \
+            {k: v for k, v in launches.items() if v}:
+        raise AssertionError(f"ecoli2: the second run launched "
+                             f"{rec['launches']}, the first {launches}")
     recs["second"] = rec
     assert_same_tree(first, second, "ecoli2 second run")
     if len(recorder.beam) != launches["beam_scan"]:
@@ -973,9 +1173,6 @@ def e2e_ecoli2(tmp):
                              f"the second run, {launches} in the first")
     if len(recorder.nw) != launches["nw_best"]:
         raise AssertionError(f"{len(recorder.nw)} NW partitions in the "
-                             f"second run, {launches} in the first")
-    if len(moves.calls) != launches["upem_moves"]:
-        raise AssertionError(f"{len(moves.calls)} move calls in the "
                              f"second run, {launches} in the first")
 
     from torch.profiler import ProfilerActivity, profile
@@ -996,23 +1193,26 @@ def e2e_ecoli2(tmp):
     assert_same_tree(first, cpu, "ecoli2 card run against the CPU run")
     emit({"phase": "e2e", "config": "ecoli2", "byte_equal":
           ["second", "traced", "cpu"], "files": len(_tree(first))})
-    return launches, recorder, moves, recs
+    return launches, recorder, climbs.climbs, recs
 
 
-def check_dispatches(dev, recorder, moves, sweep_later):
+def check_dispatches(dev, recorder, climbs, sweep_later):
     """K1, K4 and K6 against their plain versions at the main path's
     largest recorded beam dispatch: as dispatched, and on the same blocks
     at the next ploidy (the dispatch a further sweep level gives them).
     K4 runs on the first UPEM iteration's input (the beam's
     assignments), and on the later UPEM iterations that apply moves: the
-    main path's own, recorded in phase 4 (`moves`), those of the UPEM
-    loop run here on the next-ploidy dispatch, and `sweep_later` (phase
+    launch route's on the main path's own climbs, recorded in phase 4
+    (`climbs`), on the next-ploidy dispatch, and `sweep_later` (phase
     3's loop on the kernel sweep); the one that moves the most reads is
-    timed. K6 runs at the climb's inputs (check_eval), and the whole
-    climb is timed against the host-loop route (climb_ab). Returns
-    ([{"k1": (err, kernel_s, plain_s, bound), "k4": ..., "k6": ...,
-    "climb": record}] for the dispatch as made first and at the next
-    ploidy, check_later_moves' result)."""
+    timed. K6 runs at the climb's inputs: its modes (check_eval) and its
+    climb kernel against upem_climb_plain (check_climb), and the whole
+    climb is timed against the launch route and the host loop
+    (climb_ab); K6's ploidy-1 MEC (check_mec1) at the dispatch as made.
+    Returns ([{"k1": (err, kernel_s, plain_s, bound), "k4": ..., "k6":
+    ..., "climb": (err, kernel_s, plain_s, bound, record), "climb_ab":
+    record, "mec1": check_mec1's result (first only)}] for the dispatch
+    as made first and at the next ploidy, check_later_moves' result)."""
     (al, wt, nr, ep, npt), P0, W, kw, (_res, asg) = max(
         recorder.beam, key=lambda b: b[0][0].shape[0])
     A = kw["max_alleles"]
@@ -1031,13 +1231,21 @@ def check_dispatches(dev, recorder, moves, sweep_later):
         k4 = check_first_moves(ups, P, A, label=label + " iteration 0")
         out.append({"k1": (k1_err, k_s, p_s, k1_bnd), "k4": k4,
                     "k6": check_eval(ups, P, A, label, timing=True),
-                    "climb": climb_ab(ups, P, A, label)})
+                    "climb": check_climb(ups, P, A, label, timing=True),
+                    "climb_ab": climb_ab(ups, P, A, label)})
+        if P == P0:
+            out[-1]["mec1"] = check_mec1(ups, A, f"ecoli2 dispatch "
+                                         f"(G={al.shape[0]}) P=1")
 
+    with MovesRecorder() as moves:
+        for P, (c_al, c_wt, c_nr, c_ep, c_asg), c_A in climbs:
+            climb_launch_route(c_al, c_wt, c_asg, c_nr, c_ep, P, c_A)
     main_later = moves.later_with_moves("ecoli2 main path")
     n_next, next_later = upem_loop_moves(
-        dev, ups, P0 + 1, A, f"ecoli2 dispatch P={P0 + 1} (same blocks)")
+        ups, P0 + 1, A, f"ecoli2 dispatch P={P0 + 1} (same blocks)")
     emit({"phase": "dispatch", "kernel": "upem_moves",
-          "main_path_calls": len(moves.calls),
+          "main_path_climbs": len(climbs),
+          "launch_route_calls": len(moves.calls),
           "main_path_later_with_moves": len(main_later),
           f"p{P0 + 1}_loop_calls": n_next,
           f"p{P0 + 1}_loop_later_with_moves": len(next_later),
@@ -1253,39 +1461,40 @@ def north_star_phase(tmp, device="cuda:0"):
 
 class SweepCounter:
     """While active, counts the sweep's beam dispatches (K1) by level
-    (the dispatch's ploidy) with their blocks, and its move-function
-    calls (K4) with those that applied at least one move (a converged
-    instance's masked rounds move nothing). It keeps no tensor and adds
-    no device sync: each call's "moved" flag stays on the device until
+    (the dispatch's ploidy) with their blocks, and its climbs with the
+    instances each climb moved. It keeps no tensor beyond a count per
+    climb and adds no device sync: the counts stay on the device until
     summary()."""
 
     def __init__(self):
-        from floria_tpu_torch.kernels import beam, upem_batch
+        from floria_tpu_torch.kernels import beam
+        from floria_tpu_torch.phase import local
 
-        self.beam, self.upem = beam, upem_batch
+        self.beam, self.local = beam, local
         self.levels, self.blocks, self.moved = {}, {}, []
 
     def __enter__(self):
         self._beam = self.beam.beam_search_traceback
-        self._apply = self.upem.apply_moves
+        self._upem = self.local.upem_optimize_device
 
         def beam(alleles, weights, nr, ep, nparts, P, W, **kw):
             self.levels[P] = self.levels.get(P, 0) + 1
             self.blocks[P] = self.blocks.get(P, 0) + int(alleles.shape[0])
             return self._beam(alleles, weights, nr, ep, nparts, P, W, **kw)
 
-        def apply_moves(assign, diff, num_reads, active=None):
-            out = self._apply(assign, diff, num_reads, active)
-            self.moved.append((out != assign.to(out.dtype)).any())
+        def upem(alleles, weights, assign0, *args, **kw):
+            out = self._upem(alleles, weights, assign0, *args, **kw)
+            self.moved.append((out[0] != assign0.to(out[0].dtype))
+                              .any(dim=1).sum())
             return out
 
         self.beam.beam_search_traceback = beam
-        self.upem.apply_moves = apply_moves
+        self.local.upem_optimize_device = upem
         return self
 
     def __exit__(self, *exc):
         self.beam.beam_search_traceback = self._beam
-        self.upem.apply_moves = self._apply
+        self.local.upem_optimize_device = self._upem
 
     def summary(self):
         return {"dispatches_by_level": {str(p): n for p, n in
@@ -1293,9 +1502,32 @@ class SweepCounter:
                 "blocks_by_level": {str(p): n for p, n in
                                     sorted(self.blocks.items())},
                 "highest_level": max(self.levels, default=None),
-                "move_calls": len(self.moved),
-                "move_calls_with_moves": int(torch.stack(self.moved).sum())
+                "climbs": len(self.moved),
+                "instances_moved": int(torch.stack(self.moved).sum())
                 if self.moved else 0}
+
+    def expected_launches(self):
+        """The kernel launches of the counted sweep on one card: one K1
+        and one K6 climb kernel per dispatch, one K6 evaluation kernel
+        (the ploidy-1 MEC) per fused level-2 dispatch, and no K4."""
+        dispatches = sum(self.levels.values())
+        return {"beam_scan": dispatches, "upem_moves": 0,
+                "upem_climb": dispatches,
+                "upem_eval": self.levels.get(2, 0)}
+
+
+def assert_launches(what, launches, want=None):
+    """K1 and K6's climb kernel launched and K4 not (its body runs inside
+    the climb kernel); with `want`, exactly those counts (K6's evaluation
+    kernel too)."""
+    got = {k: launches.get(k, 0) for k in ("beam_scan", "upem_moves",
+                                           "upem_climb", "upem_eval")}
+    if want is not None and got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    if got["beam_scan"] <= 0 or got["upem_climb"] <= 0 \
+            or got["upem_moves"] != 0:
+        raise AssertionError(f"{what}: launches {launches}: K1 and K6's "
+                             "climb kernel must launch, K4 not")
 
 
 def config4_phase(tmp, device="cuda:0"):
@@ -1303,16 +1535,17 @@ def config4_phase(tmp, device="cuda:0"):
     (300 kbp, 9,000 SNPs, `-p 6 -s 3`) at full size. The CLI runs in
     this process first, then second and, on a card, traced, each held to
     the JAX CLI's bytes. The second run counts the sweep's beam
-    dispatches per level and the K4 calls that moved reads, records
-    every UPEM climb's inputs, and on a card runs every level's launch
-    under sync debug mode "error" and counts each pull's host waits; on
-    a card every climb is NUM_ITER_OPTIMIZE masked rounds, so K4 launches
-    20 times and K6 22 times per dispatch (plus the level-1 MEC of each
-    fused level-2 dispatch). The traced run gives the card's busy share.
+    dispatches per level and its climbs with the instances they moved,
+    records every UPEM climb's inputs, and on a card runs every level's
+    launch under sync debug mode "error" and counts each pull's host
+    waits; on a card a climb is one launch of K6's climb kernel, so it
+    launches once per dispatch, K6's evaluation kernel once per fused
+    level-2 dispatch (its level-1 MEC), and K4 never. The traced run
+    gives the card's busy share.
     The outputs are scored against the simulation's truth and must give
     the golden record's evaluation. Returns (evaluation, the recorded
     climbs, {run: record})."""
-    from floria_tpu_torch import constants, timing
+    from floria_tpu_torch import timing
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.sim.evaluate import (evaluate_haplosets,
                                                evaluate_vartigs)
@@ -1360,10 +1593,7 @@ def config4_phase(tmp, device="cuda:0"):
                "files_equal_to_jax": len(entry["outputs_sha256"])}
         if on_card:
             rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-            for k in ("beam_scan", "upem_moves", "upem_eval"):
-                if launches.get(k, 0) <= 0:
-                    raise AssertionError(f"config4 {label} run launched no "
-                                         f"{k}: {launches}")
+            assert_launches(f"config4 {label} run", launches)
         if prof is not None:
             busy = device_busy_s(prof)
             if busy <= 0.0:
@@ -1375,21 +1605,10 @@ def config4_phase(tmp, device="cuda:0"):
             rec.update(counter.summary())
             if on_card:
                 rec["sync_check"] = sync.summary()
-                dispatches = sum(counter.levels.values())
-                rounds = constants.NUM_ITER_OPTIMIZE
-                want = {"upem_moves": rounds * dispatches,
-                        "upem_eval": (rounds + 2) * dispatches
-                        + counter.levels.get(2, 0)}
-                got = {k: launches.get(k, 0) for k in want}
-                if got != want or rec["move_calls"] != got["upem_moves"]:
-                    raise AssertionError(
-                        f"config4: {rec['move_calls']} move calls and "
-                        f"launches {got} for {dispatches} dispatches, "
-                        f"expected {want}")
-                if not 0 < rec["move_calls_with_moves"] < rec["move_calls"]:
-                    raise AssertionError(
-                        f"config4: {rec['move_calls_with_moves']} of "
-                        f"{rec['move_calls']} move calls moved reads")
+                assert_launches("config4 second run", launches,
+                                counter.expected_launches())
+            if rec["instances_moved"] <= 0:
+                raise AssertionError("config4: no climb moved a read")
         emit(rec)
         recs[label] = rec
         kept = out_dir + "_" + label
@@ -1408,29 +1627,32 @@ def config4_phase(tmp, device="cuda:0"):
 
 
 def upem_climb_phase(climbs):
-    """Phase upem_climb: K6 against its plain version at every UPEM
-    climb the config4 run recorded (check_eval: init, step, mec), and at
-    the largest dispatch of each sweep level K6's init timed and the
-    whole climb timed against the host-loop route (climb_ab). Returns
-    ({level: (k6 result, climb record)} at those dispatches, max_abs_err
-    over every check)."""
+    """Phase upem_climb: K6 at every UPEM climb the config4 run recorded,
+    its climb kernel against upem_climb_plain (check_climb) and its modes
+    against their plain versions (check_eval: init, step, mec); at the
+    largest dispatch of each sweep level both timed and the whole climb
+    timed against the launch route and the host loop (climb_ab). Returns
+    ({level: (check_eval's result, check_climb's, climb_ab's record)} at
+    those dispatches, max_abs_err over the evaluation kernel's checks and
+    over the climb kernel's)."""
     largest = {}
     for i, (P, ups, A) in enumerate(climbs):
         if P not in largest or ups[0].shape[0] > climbs[largest[P]][1][0] \
                 .shape[0]:
             largest[P] = i
-    err, out = 0.0, {}
+    err, climb_err, out = 0.0, 0.0, {}
     for i, (P, ups, A) in enumerate(climbs):
         label = f"config4 level {P} dispatch {i}"
         timing = largest[P] == i
         res = check_eval(ups, P, A, label, timing=timing)
-        err = max(err, res[0])
+        climb = check_climb(ups, P, A, label, timing=timing)
+        err, climb_err = max(err, res[0]), max(climb_err, climb[0])
         if timing:
-            out[P] = (res, climb_ab(ups, P, A, label))
+            out[P] = (res, climb, climb_ab(ups, P, A, label))
     emit({"phase": "upem_climb", "config": "config4",
           "climbs_checked": len(climbs), "levels": sorted(out),
-          "max_abs_err": err})
-    return out, err
+          "max_abs_err": max(err, climb_err)})
+    return out, err, climb_err
 
 
 def tools_outputs(sim_dir, haplosets, contig, dest, device="cuda:0"):
@@ -1697,10 +1919,7 @@ def parallel_phase(dev, recorder, tmp):
     torch.cuda.synchronize()
     two_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    for k in ("beam_scan", "upem_moves", "upem_eval"):
-        if launches.get(k, 0) <= 0:
-            raise AssertionError(f"sharded sweep: {k} not launched "
-                                 f"({launches})")
+    assert_launches("sharded sweep", launches)
     _assert_sweeps_equal("sharded sweep", two, one)
     emit({"phase": "parallel", "case": "sharded sweep (G=8, R=320, "
           "S=2048, ploidies <= 5)", "shards": len(mesh),
@@ -1716,10 +1935,7 @@ def parallel_phase(dev, recorder, tmp):
     dryrun_multichip(len(mesh), device=mesh)
     dry_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    for k in ("beam_scan", "upem_moves", "upem_eval"):
-        if launches.get(k, 0) <= 0:
-            raise AssertionError(f"dryrun_multichip: {k} not launched "
-                                 f"({launches})")
+    assert_launches("dryrun_multichip", launches)
     emit({"phase": "parallel", "case": "dryrun_multichip",
           "shards": len(mesh), "launches": launches, "dryrun_s": dry_s})
 
@@ -1734,10 +1950,7 @@ def parallel_phase(dev, recorder, tmp):
     for nproc in (1, 2):
         wall, ranks = run_ranks(sim_dir, out_dir, nproc)
         for k, rank in enumerate(ranks):
-            for kernel in ("beam_scan", "upem_moves", "upem_eval"):
-                if rank["launches"].get(kernel, 0) <= 0:
-                    raise AssertionError(f"rank {k} of {nproc} launched "
-                                         f"no {kernel}: {rank}")
+            assert_launches(f"rank {k} of {nproc}", rank["launches"])
         kept = f"{out_dir}_{nproc}"
         shutil.move(out_dir, kept)
         runs[nproc] = kept
@@ -1765,6 +1978,24 @@ def parallel_phase(dev, recorder, tmp):
     return k1, one_process_launches
 
 
+def ptxas_report(lines, kernel: str):
+    """[{entry, registers, spill_stores, spill_loads}] for each compiled
+    entry whose name holds `kernel`, from ptxas's -v lines."""
+    out, cur = [], None
+    for ln in lines:
+        if "entry function" in ln:
+            cur = {"entry": ln.split("'")[1]} if kernel in ln else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and "spill" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            cur["spill_stores"], cur["spill_loads"] = nums[1], nums[2]
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
@@ -1774,8 +2005,8 @@ def main(argv=None) -> None:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab-inputs", metavar="PATH",
-                    help="also save the inputs of every timed K4 and K5 "
-                    "case (torch.save of {kernel: {label: args}}) for "
+                    help="also save the inputs of every timed K4, K5 and "
+                    "climb case (torch.save of {call: {label: args}}) for "
                     "scripts/torch_kernel_parent_ab.py")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1802,8 +2033,17 @@ def main(argv=None) -> None:
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if any(w in ln for w in ("entry function", "registers",
                                       "spill"))]
+    k6_ptxas = {name: ptxas_report(ptxas, name)
+                for name in ("upem_climb_kernel", "upem_eval_kernel")}
     emit({"phase": "build", "seconds": time.time() - t0,
-          "cuda_kernels_s": cuda_s, "ptxas": ptxas})
+          "cuda_kernels_s": cuda_s, "ptxas": ptxas,
+          "climb_kernel": k6_ptxas["upem_climb_kernel"],
+          "eval_kernel": k6_ptxas["upem_eval_kernel"]})
+    for name, rep in k6_ptxas.items():
+        if len(rep) != 4 or any(k["spill_stores"] or k["spill_loads"]
+                                for k in rep):
+            raise AssertionError(f"{name} spills or is missing from "
+                                 f"ptxas's report: {rep}")
 
     dev = torch.device("cuda", 0)
     alleles, weights, nreads, eps = make_workload(8, 320, 2048)
@@ -1819,21 +2059,22 @@ def main(argv=None) -> None:
             label=label)[0])
     k4_err, k4_sweep_s, _p_s, k4_sweep_bnd = check_first_moves(
         ups, 5, label="sweep")
-    _n, sweep_later = upem_loop_moves(dev, ups, 5, 2, "sweep")
+    _n, sweep_later = upem_loop_moves(ups, 5, 2, "sweep")
     k6_sweep = check_eval(ups, 5, 2, "sweep P=5", timing=True)
+    climb_sweep = check_climb(ups, 5, 2, "sweep P=5", timing=True)
     climbs_ab = {"sweep P=5": climb_ab(ups, 5, 2, "sweep P=5")}
     del ups
 
     with tempfile.TemporaryDirectory(prefix="floria_smoke_") as tmp:
-        launches, recorder, moves, ecoli2_runs = e2e_ecoli2(tmp)
-        per_dispatch, k4_later = check_dispatches(dev, recorder, moves,
+        launches, recorder, climbs, ecoli2_runs = e2e_ecoli2(tmp)
+        per_dispatch, k4_later = check_dispatches(dev, recorder, climbs,
                                                   sweep_later)
         k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
-        del moves, sweep_later
+        del climbs, sweep_later
         parity_long3(tmp)
         north_star = north_star_phase(tmp)
         _eval, climbs, config4_runs = config4_phase(tmp)
-        config4_k6, k6_err = upem_climb_phase(climbs)
+        config4_k6, k6_err, climb_err = upem_climb_phase(climbs)
         del climbs
         tools_phase(tmp, *north_star["long3"])
         sharded, multi_launches = parallel_phase(dev, recorder, tmp)
@@ -1842,18 +2083,21 @@ def main(argv=None) -> None:
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the port loaded jax or floria_tpu: {loaded}")
-    k6_err = max(k6_err, k6_sweep[0])
+    k6_err = max(k6_err, k6_sweep[0], per_dispatch[0]["mec1"][0])
+    climb_err = max(climb_err, climb_sweep[0])
     for d in per_dispatch:
         k1_err = max(k1_err, d["k1"][0])
         k4_err = max(k4_err, d["k4"][0])
         k6_err = max(k6_err, d["k6"][0])
-        climbs_ab[d["climb"]["case"]] = d["climb"]
-    for P, (_res, climb) in config4_k6.items():
-        climbs_ab[climb["case"]] = climb
+        climb_err = max(climb_err, d["climb"][0])
+        climbs_ab[d["climb_ab"]["case"]] = d["climb_ab"]
+    for P, (_res, _climb, ab) in config4_k6.items():
+        climbs_ab[ab["case"]] = ab
     k1_err = max(k1_err, sharded["max_abs_err"])
     k1_s, k1_plain_s, k1_bnd = per_dispatch[0]["k1"][1:]
     k4_s, k4_plain_s, k4_bnd = per_dispatch[0]["k4"][1:]
-    k6_s, k6_plain_s, k6_bnd = per_dispatch[0]["k6"][1:]
+    k6_s, k6_plain_s, k6_bnd = per_dispatch[0]["climb"][1:4]
+    mec1 = per_dispatch[0]["mec1"]
     emit({"phase": "k1_summary", "launches_ecoli2": launches,
           "ecoli2_p2_ms": k1_s * 1e3,
           "ecoli2_p2_two_shards_ms": sharded["sharded_ms"],
@@ -1864,7 +2108,8 @@ def main(argv=None) -> None:
           "bound_sweep_ms": k1_sweep_bnd[0]})
     if k4_later is not None:
         k4_err = max(k4_err, k4_later[0])
-    emit({"phase": "k4_summary", "launches_ecoli2": launches["upem_moves"],
+    emit({"phase": "k4_summary",
+          "launches_ecoli2": launches.get("upem_moves", 0),
           "ecoli2_p2_ms": k4_s * 1e3,
           "ecoli2_p3_ms": per_dispatch[1]["k4"][1] * 1e3,
           "later_iteration": None if k4_later is None else k4_later[4],
@@ -1877,26 +2122,42 @@ def main(argv=None) -> None:
           else k4_later[3][0],
           "bound_sweep_ms": k4_sweep_bnd[0]})
     runs = {"ecoli2": ecoli2_runs, "config4": config4_runs}
+    climb_recs = {"sweep P=5": climb_sweep[4],
+                  "ecoli2 P=2": per_dispatch[0]["climb"][4],
+                  "ecoli2 P=3": per_dispatch[1]["climb"][4],
+                  **{f"config4 level {P}": c[4]
+                     for P, (_r, c, _ab) in sorted(config4_k6.items())}}
+    eval_recs = {"sweep P=5": k6_sweep, "ecoli2 P=2": per_dispatch[0]["k6"],
+                 "ecoli2 P=3": per_dispatch[1]["k6"],
+                 **{f"config4 level {P}": r
+                    for P, (r, _c, _ab) in sorted(config4_k6.items())}}
     emit({"phase": "k6_summary",
           "launches": {"ecoli2": launches, "multi500": multi_launches,
                        "config4": config4_runs["first"]["launches"]},
-          "ms": {"ecoli2 P=2": k6_s * 1e3,
-                 "ecoli2 P=3": per_dispatch[1]["k6"][1] * 1e3,
-                 "sweep P=5": k6_sweep[1] * 1e3,
-                 **{f"config4 level {P}": res[1] * 1e3
-                    for P, (res, _c) in sorted(config4_k6.items())}},
-          "plain_ms": {"ecoli2 P=2": k6_plain_s * 1e3,
-                       "ecoli2 P=3": per_dispatch[1]["k6"][2] * 1e3,
-                       "sweep P=5": k6_sweep[2] * 1e3},
-          "bound_ms": {"ecoli2 P=2": k6_bnd[0],
-                       "ecoli2 P=3": per_dispatch[1]["k6"][3][0],
-                       "sweep P=5": k6_sweep[3][0],
-                       **{f"config4 level {P}": res[3][0]
-                          for P, (res, _c) in sorted(config4_k6.items())}},
+          "climb_kernel": {k: {f: r.get(f) for f in (
+              "G", "R", "S", "P", "cluster", "shared_memory", "evaluations",
+              "rounds_max", "kernel_ms", "kernel_device_ms",
+              "kernel_event_ms", "plain_ms", "bound_ms", "pass_bound_ms")}
+              for k, r in climb_recs.items()},
+          "eval_init_ms": {k: r[1] * 1e3 for k, r in eval_recs.items()},
+          "eval_init_device_ms": {k: r[4] for k, r in eval_recs.items()},
+          "eval_init_plain_ms": {k: r[2] * 1e3 for k, r in eval_recs.items()
+                                 if r[2] is not None},
+          "eval_init_bound_ms": {k: r[3][0] for k, r in eval_recs.items()},
+          "mec1_ecoli2": {"ms": mec1[1] * 1e3, "device_ms": mec1[4],
+                          "plain_ms": mec1[2] * 1e3,
+                          "bound_ms": mec1[3][0]},
           "climb_ms": {k: c["climb_ms"] for k, c in climbs_ab.items()},
+          "launch_route_ms": {k: c["launch_route_ms"]
+                              for k, c in climbs_ab.items()},
           "host_loop_ms": {k: c["host_loop_ms"] for k, c in climbs_ab.items()},
           "climb_enqueue_ms": {k: c["climb_enqueue_ms"]
                                for k, c in climbs_ab.items()},
+          "launch_route_enqueue_ms": {k: c["launch_route_enqueue_ms"]
+                                      for k, c in climbs_ab.items()},
+          "kernel_slower_than_launch_route": sorted(
+              k for k, c in climbs_ab.items()
+              if c.get("kernel_slower_than_launch_route")),
           "phase_launch_wait_s": {
               f"{cfg} {label}": {k: rec["stages_s"].get(k) for k in (
                   "phasing", "phase.launch", "phase.wait")}
@@ -1928,9 +2189,12 @@ def main(argv=None) -> None:
         row("nw_best", "floria_tpu_torch/csrc/nw_best.cu",
             "floria_tpu/kernels/realign.py:94", k5_err, k5_s, k5_plain_s,
             k5_bnd),
+        row("upem_climb", "floria_tpu_torch/csrc/upem_eval.cu",
+            "floria_tpu/kernels/upem_batch.py:320", climb_err, k6_s,
+            k6_plain_s, k6_bnd),
         row("upem_eval", "floria_tpu_torch/csrc/upem_eval.cu",
-            "floria_tpu/kernels/upem_batch.py:50", k6_err, k6_s, k6_plain_s,
-            k6_bnd)]}), flush=True)
+            "floria_tpu/kernels/upem_batch.py:196", k6_err, mec1[1],
+            mec1[2], mec1[3])]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

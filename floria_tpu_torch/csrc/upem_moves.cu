@@ -15,32 +15,16 @@
 // reduction, a compaction, a sort of n_valid keys and a serial walk. The
 // design keeps every step of an instance inside one CTA (512 threads) and
 // its state in shared memory, so the function is one launch with no
-// device-memory round trip between steps:
-//   1. coalesced load of the assignment; live part sizes by shared-memory
-//      atomics (integer, so the order does not matter);
-//   2. every (r, j) tests valid = gain > 0, r < num_reads, j != a_r and
-//      sizes[a_r] > 1, reading `diff` once, coalesced;
-//   3. the valid candidates are compacted by warp ballots, each warp taking
-//      its base from one shared counter: their slots depend on the warps'
-//      order, their sorted order does not (the keys are distinct);
-//   4. a bitonic network sorts the n_valid (gain, k = r * P + j) pairs by
-//      gain descending, then k ascending: the stable argsort's order over
-//      the valid prefix (invalid keys are +inf and follow in generation
-//      order, never visited). Every comparator is ascending, so pairs past
-//      n_valid hold virtual +inf keys that no comparator moves, and only
-//      n_valid entries are stored and sorted, not R * P. Gains are
-//      compared as f64, which is exact;
-//   5. thread 0 walks the sorted list over shared moved/part-size state;
-//      the CTA then writes the proposal, coalesced.
-// A negative part of a live row wraps to P + a, as the reference's and
-// the host walk's indexing do; padding rows (r >= num_reads, -1 as the
-// traceback leaves them) are never candidates and come back unchanged.
+// device-memory round trip between steps. The steps are
+// `floria_moves::move_function` (upem_moves_core.cuh), which K6's climb
+// kernel (upem_eval.cu) runs between its evaluations; on the main path the
+// move function runs there, and this launch serves the card tests and the
+// smoke run's checks and its earlier launch route.
 //
-// An `active` mask (null: every instance active) lets the hill-climb run its
-// fixed NUM_ITER_OPTIMIZE rounds on the card without a host wait: an
-// inactive instance's CTA copies its assignment to the proposal and
-// returns, so a converged instance proposes nothing (K6 then finds it
-// unchanged) and costs one load of its flag per round.
+// An `active` mask (null: every instance active) lets a caller run a fixed
+// number of rounds without a host wait: an inactive instance's CTA copies
+// its assignment to the proposal and returns, so a converged instance
+// proposes nothing and costs one load of its flag per round.
 //
 // Shared memory per instance: 12 bytes per possible candidate (at most
 // R * (P - 1)) plus 5 per read. When that exceeds the card's opt-in limit
@@ -51,23 +35,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "upem_moves_core.cuh"
+
 namespace {
 
 constexpr int THREADS = 512;
-
-// (gain, k) sorts before (gain', k') when its gain is larger, or equal
-// with an earlier generation index.
-__device__ __forceinline__ void order_pair(double* gain, int32_t* cand,
-                                           int lo, int hi) {
-  const double ga = gain[lo], gb = gain[hi];
-  const int ka = cand[lo], kb = cand[hi];
-  if (gb > ga || (gb == ga && kb < ka)) {
-    gain[lo] = gb;
-    gain[hi] = ga;
-    cand[lo] = kb;
-    cand[hi] = ka;
-  }
-}
 
 template <bool kShared>
 __global__ void __launch_bounds__(THREADS) upem_moves_kernel(
@@ -82,7 +54,6 @@ __global__ void __launch_bounds__(THREADS) upem_moves_kernel(
   __shared__ int s_count;
   const int g = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   if (active != nullptr && !active[g]) {
     const int32_t* src = assign + (long long)g * R;
     int32_t* dst = proposal + (long long)g * R;
@@ -95,102 +66,9 @@ __global__ void __launch_bounds__(THREADS) upem_moves_kernel(
   int32_t* cand = reinterpret_cast<int32_t*>(work + 8LL * cap);  // [cap]
   int32_t* na = cand + cap;                                   // [R]
   unsigned char* moved = reinterpret_cast<unsigned char*>(na + R);  // [R]
-
-  const int nr = num_reads[g];
-  const int32_t* as = assign + (long long)g * R;
-  const double* dg = diff + (long long)g * R * P;
-
-  for (int p = tid; p < P; p += THREADS) cur[p] = 0;
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-
-  // 1. The assignment and the live part sizes.
-  for (int r = tid; r < R; r += THREADS) {
-    const int a = as[r];
-    na[r] = a;
-    moved[r] = 0;
-    if (r < nr && a >= 0 && a < P) atomicAdd(&cur[a], 1);
-  }
-  __syncthreads();
-
-  // 2-3. Valid candidates, compacted.
-  const int RP = R * P;
-  for (int e0 = 0; e0 < RP; e0 += THREADS) {
-    const int e = e0 + tid;
-    bool valid = false;
-    double gn = 0.0;
-    if (e < RP) {
-      const int r = e / P;
-      if (r < nr) {
-        const int j = e - r * P;
-        const int a = na[r];
-        const int aw = min(max(a < 0 ? a + P : a, 0), P - 1);
-        gn = dg[(long long)r * P + aw] - dg[e];
-        valid = gn > 0.0 && j != a && cur[aw] > 1;
-      }
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, valid);
-    if (m != 0u) {
-      int base = 0;
-      if (lane == 0) base = atomicAdd(&s_count, __popc(m));
-      base = __shfl_sync(0xffffffffu, base, 0);
-      if (valid) {
-        const int pos = base + __popc(m & ((1u << lane) - 1u));
-        gain[pos] = gn;
-        cand[pos] = e;
-      }
-    }
-  }
-  __syncthreads();
-  const int n = s_count;
-
-  // 4. Sort the n candidates: gain descending, then k ascending.
-  int lg_n = 0;
-  while ((1 << lg_n) < n) ++lg_n;
-  const int pairs = (1 << lg_n) >> 1;
-  for (int ls = 1; ls <= lg_n; ++ls) {
-    // Flip: i against its mirror in each block of 2^ls.
-    const int lh = ls - 1;
-    for (int t = tid; t < pairs; t += THREADS) {
-      const int blk = t >> lh;
-      const int off = t & ((1 << lh) - 1);
-      const int lo = (blk << ls) + off;
-      const int hi = (blk << ls) + (1 << ls) - 1 - off;
-      if (hi < n) order_pair(gain, cand, lo, hi);
-    }
-    __syncthreads();
-    // Half-cleaners at distances 2^(ls-2) .. 1.
-    for (int ld = ls - 2; ld >= 0; --ld) {
-      for (int t = tid; t < pairs; t += THREADS) {
-        const int lo = ((t >> ld) << (ld + 1)) + (t & ((1 << ld) - 1));
-        const int hi = lo + (1 << ld);
-        if (hi < n) order_pair(gain, cand, lo, hi);
-      }
-      __syncthreads();
-    }
-  }
-
-  // 5. The capped walk. A read moves at most once, so na[r] is still its
-  // original part whenever moved[r] is 0.
-  if (tid == 0) {
-    int n_moves = n / 10;
-    if (n_moves == 0) n_moves = n / 3 + 1;
-    for (int k = 0; k < n; ++k) {
-      const int idx = cand[k];
-      const int r = idx / P;
-      const int j = idx - r * P;
-      if (moved[r]) continue;
-      const int a = na[r];
-      const int i = min(max(a < 0 ? a + P : a, 0), P - 1);
-      if (cur[i] == 1) continue;
-      na[r] = j;
-      moved[r] = 1;
-      cur[j] += 1;
-      cur[i] -= 1;
-      if (k > n_moves) break;
-    }
-  }
-  __syncthreads();
+  floria_moves::move_function(assign + (long long)g * R,
+                              diff + (long long)g * R * P, num_reads[g], R,
+                              P, cur, &s_count, gain, cand, na, moved);
   int32_t* out = proposal + (long long)g * R;
   for (int r = tid; r < R; r += THREADS) out[r] = na[r];
 }

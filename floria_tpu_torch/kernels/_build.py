@@ -147,8 +147,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         [I]              # mode
         + [P] * 10       # alleles weights assign epsilon best score diff
                          # active mec scratch
-        + [ctypes.c_longlong]  # scratch stride
-        + [I] * 6        # G R S P A smem
+        + [P]            # layout (9 int64, host)
+        + [I] * 8        # G R S P A Sc vec smem_max
+        + [P])           # stream
+    lib.floria_upem_climb.restype = ctypes.c_int
+    lib.floria_upem_climb.argtypes = (
+        [P] * 9          # alleles weights assign0 num_reads epsilon best
+                         # diff mec scratch
+        + [P]            # layout (9 int64, host)
+        + [I] * 9        # G R S P A Sc vec cluster smem_max
         + [P])           # stream
     lib.floria_nw_best.restype = ctypes.c_int
     lib.floria_nw_best.argtypes = [P] * 7 + [ctypes.c_longlong, I, I, P]

@@ -1,5 +1,5 @@
-"""Time the K4 and K5 calls of two trees of floria_tpu_torch on the same
-inputs, on one CUDA card.
+"""Time the K4, K5 and UPEM climb calls of two trees of floria_tpu_torch
+on the same inputs, on one CUDA card.
 
     python3 chip_smoke.py --ab-inputs build/ab_inputs.pt
     git archive <commit> | tar -x -C build/parent
@@ -12,8 +12,12 @@ function, once per UPEM iteration (in a tree where K4 takes the whole
 function it is one launch; in an earlier one it is the candidates and
 their sort in PyTorch ops, then the walk kernel), and
 `kernels.realign.nw_best(q_packed, si, nal, ref_tab, al_tab, a_max)`, the
-realignment NW (K5). The inputs are the cases `chip_smoke.py
---ab-inputs` saved, the ones it timed the two kernels on.
+realignment NW (K5), and `kernels.upem_batch.upem_optimize_device(alleles,
+weights, assign0, num_reads, epsilon, P, A, device=...)`, the whole UPEM
+hill-climb of a dispatch (one launch of K6's climb kernel in a tree that
+has it; K6 and K4 launches, 42 per climb, in an earlier one). The inputs
+are the cases `chip_smoke.py --ab-inputs` saved, the ones it timed those
+calls on.
 
 Both trees hold a package of the same name, so each runs in a process of
 its own (`--tree DIR --worker`), in the order parent, this tree, this
@@ -21,7 +25,9 @@ tree, parent, and each builds its own kernels under its own `build/`.
 Every process times each case as the median of `--reps` calls after one
 warm call, each call synchronized (host clock, as chip_smoke.py times),
 takes the card's busy time per call over all of the call's kernels and
-copies from torch.profiler's CUDA activity, and reports the SHA-256 of
+copies from torch.profiler's CUDA activity (a trace may miss launches, so
+this can read low) and the time per call between two CUDA events around
+`--reps` calls enqueued back to back, and reports the SHA-256 of
 each result: the two trees must agree. The last line is a JSON summary
 with the card's `nvidia-smi` name and power limit.
 """
@@ -47,6 +53,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def result_sha256(res) -> str:
+    """SHA-256 of a result tensor, or of a tuple of them in order."""
+    h = hashlib.sha256()
+    for x in res if isinstance(res, tuple) else (res,):
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def worker(tree: str, inputs: str, reps: int) -> dict:
     """Times the tree at `tree` on every saved case."""
     import numpy as np
@@ -67,7 +81,12 @@ def worker(tree: str, inputs: str, reps: int) -> dict:
     t0 = time.time()
     _build.get_lib()
     build_s = time.time() - t0
-    calls = {"upem_moves": upem_batch.apply_moves, "nw_best": realign.nw_best}
+
+    def climb(*args):
+        return upem_batch.upem_optimize_device(*args, device=dev)
+
+    calls = {"upem_moves": upem_batch.apply_moves, "nw_best": realign.nw_best,
+             "upem_optimize_device": climb}
     out = {}
     for kernel, cases in torch.load(inputs).items():
         for label, host in cases.items():
@@ -82,6 +101,13 @@ def worker(tree: str, inputs: str, reps: int) -> dict:
                 fn()
                 torch.cuda.synchronize()
                 ts.append(time.perf_counter() - t)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
@@ -92,8 +118,8 @@ def worker(tree: str, inputs: str, reps: int) -> dict:
             out[f"{kernel}: {label}"] = {
                 "ms": float(np.median(ts)) * 1e3, "min_ms": min(ts) * 1e3,
                 "device_ms": busy_us / reps * 1e-3,
-                "sha256": hashlib.sha256(
-                    res.cpu().numpy().tobytes()).hexdigest()}
+                "event_ms": start.elapsed_time(end) / reps,
+                "sha256": result_sha256(res)}
     return {"tree": tree, "build_s": build_s, "reps": reps, "cases": out}
 
 
@@ -133,7 +159,7 @@ def main(argv=None) -> None:
         summary[label] = {
             f"{side}_{key}": [runs[i]["cases"][label][key] for i in idx]
             for side, idx in (("parent", (0, 3)), ("change", (1, 2)))
-            for key in ("ms", "device_ms")}
+            for key in ("ms", "device_ms", "event_ms")}
     result = {"parent_ab": summary, "parent": parent, "card": card_line()}
     if args.out:
         with open(args.out, "w") as fh:

@@ -2,12 +2,14 @@
 same card, bitwise: K1 (beam scan + traceback), K4 (the UPEM move
 function: candidates, sort and walk; with and without its `active`
 mask), K5 (realignment NW, two alleles per DP) and K6 (UPEM move
-evaluation: init, step and unit MEC); the climb on the card against the
-CPU, and a sweep level enqueued without a host wait; the sharded beam
-and sweep (parallel/mesh.py) against the unsharded run, two shards on
-one card, and on two cards where a machine has them; and the port's CLI
-on the card against the JAX package's pipeline on JAX's CPU backend, in
-one process, on the round's small configs.
+evaluation: init, step and unit MEC; the climb kernel, over its routes,
+against the plain climb, in one launch with no host wait); the climb on
+the card against the CPU, and a sweep level enqueued without a host
+wait; the sharded beam and sweep (parallel/mesh.py) against the
+unsharded run, two shards on one card, and on two cards where a machine
+has them; and the port's CLI on the card against the JAX package's
+pipeline on JAX's CPU backend, in one process, on the round's small
+configs.
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -31,6 +33,7 @@ from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.phase import local as TL
 from test_beam_pallas import _make
 from test_torch_oracle_configs import SMALL, run_both
+from test_torch_climb_kernel import CASES as CLIMB_CASES, climb_case
 from test_torch_upem import CASES, _batch, moves_case
 
 pytestmark = pytest.mark.cuda
@@ -349,7 +352,7 @@ def test_eval_kernel_matches_plain(dev, P, A, path, monkeypatch):
     if path == "scratch":
         monkeypatch.setattr(TU, "eval_in_shared", lambda *_a: False)
     else:
-        assert TU.eval_in_shared(256, P, A, dev)
+        assert TU.eval_in_shared(48, 256, P, A, dev)
     # A step accepts somewhere within a few seeds (a climb from a random
     # assignment may not move at all).
     accepted = False
@@ -363,10 +366,30 @@ def test_eval_kernel_matches_plain(dev, P, A, path, monkeypatch):
 
 def test_eval_kernel_scratch_when_counts_exceed_shared_memory(dev):
     """A column count too large for shared memory (S = 2048 at P = 6,
-    A = 4: 432 KB) takes the scratch path without forcing."""
-    assert not TU.eval_in_shared(2048, 6, 4, dev)
-    assert TU.eval_in_shared(2048, 5, 2, dev)
+    A = 4: 393 KB of counts) takes the scratch path without forcing."""
+    assert not TU.eval_in_shared(24, 2048, 6, 4, dev)
+    assert TU.eval_in_shared(24, 2048, 5, 2, dev)
     _eval_kernel_vs_plain(dev, *eval_case(4, 24, 2048, 6, 4, seed=5), 6, 4)
+
+
+@pytest.mark.parametrize("path", ["shared", "scratch"])
+@pytest.mark.parametrize("A", [2, 3, 4])
+def test_eval_kernel_mec_at_ploidy_one_matches_plain(dev, A, path,
+                                                     monkeypatch):
+    """K6's mec mode at P = 1, as the fused 1+2 sweep level launches it
+    (every row in part 0), and with eval_case's assignments at P = 1
+    (some -1 and 1: out of range), on both routes."""
+    if path == "scratch":
+        monkeypatch.setattr(TU, "eval_in_shared", lambda *_a: False)
+    else:
+        assert TU.eval_in_shared(48, 256, 1, A, dev)
+    al, wt, asg, _nr, ep = (torch.as_tensor(x).to(dev) for x in eval_case(
+        8, 48, 256, 1, A, seed=90 + A))
+    for assign in (torch.zeros_like(asg), asg):
+        got = TU.upem_eval_cuda("mec", al, wt, assign, ep, 1, A)
+        torch.cuda.synchronize()
+        assert torch.equal(got, TU.upem_eval_plain("mec", al, wt, assign, ep,
+                                                   1, A))
 
 
 def test_eval_wrapper_counts_launches_and_checks_inputs(dev):
@@ -416,9 +439,120 @@ def test_climb_on_the_card_matches_the_cpu(dev, ploidy, seed):
                                   ploidy, max_alleles=2, device=dev)
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
-    n = TU.constants.NUM_ITER_OPTIMIZE
-    assert _build.LAUNCHES["upem_moves"] == n
-    assert _build.LAUNCHES["upem_eval"] == n + 2
+    # The whole climb is one launch of K6's climb kernel; K4 runs inside.
+    assert _build.LAUNCHES["upem_moves"] == 0
+    assert _build.LAUNCHES["upem_eval"] == 0
+    assert _build.LAUNCHES["upem_climb"] == 1
+
+
+def _climb_kernel_vs_plain(dev, args, P, A, **route):
+    """The climb kernel (route forced by `route`) against
+    upem_climb_plain on the same card, bitwise."""
+    t = [torch.as_tensor(x).to(dev) for x in args]
+    _build.LAUNCHES.clear()
+    got = TU.upem_climb_cuda(*t, P, A, **route)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"upem_climb": 1}
+    want = TU.upem_climb_plain(*t, P, A)
+    for name, a, b in zip(("best", "mec", "diff"), want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    return got
+
+
+@pytest.mark.parametrize("R,S,P,A,seed,nreads", CLIMB_CASES)
+def test_climb_kernel_matches_plain(dev, R, S, P, A, seed, nreads):
+    """The climb kernel as the main path launches it (its own plan)."""
+    _climb_kernel_vs_plain(dev, climb_case(R, S, P, A, seed, nreads), P, A)
+
+
+@pytest.mark.parametrize("G", [1, 8, 16, 17, 33, 66, 67, 115, 200])
+def test_climb_cluster_width_follows_k1(dev, G):
+    """The climb's cluster width is K1's (`beam.cluster_width`, which its C
+    entry picks) wherever each CTA keeps 128 columns (S = 2048)."""
+    sms, _limit = TU.card(dev)
+    assert TU.climb_cluster_width(G, 2048, sms) == TB.cluster_width(G, dev)
+
+
+@pytest.mark.parametrize("route", [
+    {"cluster": 1, "shared": True}, {"cluster": 1, "shared": False},
+    {"cluster": 2, "shared": True}, {"cluster": 4, "shared": False},
+    {"cluster": 8, "shared": True}, {"cluster": 8, "shared": False}])
+@pytest.mark.parametrize("case", [0, 2, 4, 6, 9])
+def test_climb_kernel_routes_match_plain(dev, case, route):
+    """Each route forced: one CTA or a cluster per instance (S not a
+    multiple of 8 or of the cluster width), the instance region in shared
+    memory or in a device scratch."""
+    R, S, P, A, seed, nreads = CLIMB_CASES[case]
+    _climb_kernel_vs_plain(dev, climb_case(R, S, P, A, seed, nreads), P, A,
+                           **route)
+
+
+@pytest.mark.parametrize("G,R,S,P,A", [(8, 320, 2048, 5, 2),
+                                       (40, 192, 1024, 5, 2),
+                                       (70, 256, 2048, 3, 4),
+                                       (6, 256, 2048, 6, 4)])
+def test_climb_kernel_at_dispatch_shapes_matches_plain(dev, G, R, S, P, A):
+    """Dispatch-sized batches: the kernel sweep's (clusters of 8), a
+    config4-like bucket (clusters of 2 at G = 40), four alleles at
+    S = 2048 and P = 3 (no cluster at G = 70; 212 KB of shared memory),
+    and P = 6 with four alleles (clusters of 8 bring it into shared
+    memory)."""
+    args = climb_case(R, S, P, A, G + P, [R - g % 5 for g in range(G)],
+                      err=0.02)
+    sms, limit = TU.card(dev)
+    C, _lay, shared, _arr = TU.climb_plan(G, R, S, P, A, sms, limit)
+    _climb_kernel_vs_plain(dev, args, P, A)
+    if G <= 8:
+        assert C == 8 and shared
+
+
+@pytest.mark.parametrize("route", [{"cluster": 1}, {"cluster": 4},
+                                   {"cluster": 2, "shared": False}])
+@pytest.mark.parametrize("S", [256, 200, 61])
+def test_climb_kernel_reads_with_gaps_match_plain(dev, S, route):
+    """Reads with uncovered cells inside their spans and second segments
+    (each read's span bounds the cells the kernel loads), on the 16-byte
+    (S = 256), 4-byte (S = 200) and scalar (S = 61) load routes."""
+    args = climb_case(96, S, 3, 2, S, [96, 90, 50, 7], holes=0.1)
+    _climb_kernel_vs_plain(dev, args, 3, 2, **route)
+
+
+def test_climb_kernel_launch_makes_no_host_wait(dev):
+    """upem_optimize_device on a card: one launch, no K4 launch, and no
+    host wait (sync debug mode "error")."""
+    R, S, P, A, seed, nreads = CLIMB_CASES[0]
+    t = [torch.as_tensor(x).to(dev) for x in climb_case(R, S, P, A, seed,
+                                                          nreads)]
+    TU.upem_optimize_device(*t, P, A, device=dev)     # plan and build
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = TU.upem_optimize_device(*t, P, A, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dict(_build.LAUNCHES) == {"upem_climb": 1}
+    want = TU.upem_climb_plain(*t, P, A)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+def test_climb_wrapper_checks_inputs(dev):
+    args = [torch.as_tensor(x).to(dev) for x in climb_case(
+        16, 40, 2, 2, 1, [16, 9])]
+    al, wt, asg, nr, ep = args
+    _build.LAUNCHES.clear()
+    for bad in ((al.long(), wt, asg, nr, ep), (al, wt.double(), asg, nr, ep),
+                (al, wt, asg.long(), nr, ep), (al, wt, asg, nr.long(), ep),
+                (al, wt, asg, nr, ep[:1]), (al, wt, asg.cpu(), nr, ep)):
+        with pytest.raises(ValueError):
+            TU.upem_climb_cuda(*bad, 2, 2)
+    with pytest.raises(ValueError):
+        TU.upem_climb_cuda(*args, 2, 5)
+    assert _build.LAUNCHES["upem_climb"] == 0
+    with pytest.raises(RuntimeError):      # refused, never run
+        TU.upem_climb_cuda(*args, 2, 2, cluster=16)
+    assert _build.LAUNCHES["upem_climb"] == 0
 
 
 def _deep_blocks():
@@ -501,7 +635,9 @@ def _sweep_sharded_vs_unsharded(mesh):
     _build.LAUNCHES.clear()
     got = TL.adaptive_sweep(blocks, opts, device=mesh)
     assert _build.LAUNCHES["beam_scan"] >= len(mesh)
-    assert _build.LAUNCHES["upem_moves"] >= len(mesh)
+    # Each shard's climbs are K6 launches; K4 runs inside them.
+    assert _build.LAUNCHES["upem_climb"] >= len(mesh)
+    assert _build.LAUNCHES["upem_moves"] == 0
     _assert_sweeps_equal(want, got)
 
 
