@@ -77,7 +77,14 @@ each; any failure raises (exit code != 0):
                 simulated truth, equal to the golden's;
  7d. tools    - vartig-dump, haplotagging (HAPQ >= 0) and a frags.txt
                 round trip of get_frags_from_bam's fragments on long3,
-                each output held to the JAX functions' hash;
+                each output held to the JAX functions' hash; then the
+                port's four host tools (floria_tpu_torch.scripts:
+                haplotag_bam, haplotag_output_dir, get_bam_partition
+                with a haploset named after the BAM's contig and with one
+                named after a contig it lacks, output_snpped_contigs) on
+                long3's inputs and phase 7b's card output, each output
+                file and stdout line held to the JAX scripts' in
+                tests/data/scripts_golden.json;
  7e. upem_climb (run between 7c and 7d) - K6's climb kernel and its
                 modes against their plain versions at every climb
                 config4's second run recorded; at the largest dispatch of
@@ -147,6 +154,8 @@ import contextlib
 import dataclasses
 import filecmp
 import hashlib
+import importlib
+import io
 import json
 import os
 import shutil
@@ -173,6 +182,11 @@ GOLDEN_LONG3 = os.path.join(REPO, "tests", "data", "long3_oracle.json")
 GOLDEN_NORTH_STAR = os.path.join(REPO, "tests", "data",
                                  "north_star_golden.json")
 OUT_MARK, SIM_MARK = "<out>", "<sim>"
+# The JAX scripts' outputs and stdout on long3 (written by
+# tests/test_torch_scripts.py); DEST_MARK stands for the tools' own
+# output directory.
+GOLDEN_SCRIPTS = os.path.join(REPO, "tests", "data", "scripts_golden.json")
+DEST_MARK = "<dest>"
 # bench.py's `ecoli2` e2e community (bench.py:134).
 ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
               coverage_per_strain=50.0, read_length=9_000,
@@ -1706,10 +1720,72 @@ def tools_outputs(sim_dir, haplosets, contig, dest, device="cuda:0"):
     return out
 
 
+def run_port_tool(name, argv):
+    """One of the port's host tools (floria_tpu_torch.scripts.<name>)
+    in this process. Returns its stdout lines."""
+    mod = importlib.import_module(f"floria_tpu_torch.scripts.{name}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    return buf.getvalue().splitlines()
+
+
+def scripts_outputs(sim_dir, out_dir, contig, dest, run=run_port_tool):
+    """The four host tools on one CLI run (inputs in `sim_dir`, output
+    tree at `out_dir`), each writing into `dest`: haplotag_bam and
+    haplotag_output_dir at their default HAPQ, get_bam_partition on the
+    contig's haploset and on a copy named after a contig the BAM lacks
+    (every record), output_snpped_contigs on the contig's vartigs.
+    `run(name, argv)` runs one tool and returns its stdout lines.
+    Returns {call: {"files": {name: sha256}, "stdout": [line]}}, the
+    paths written as OUT_MARK, DEST_MARK and SIM_MARK."""
+    bam, vcf, fasta = (os.path.join(sim_dir, f)
+                       for f in ("sim.bam", "sim.vcf", "sim.fa"))
+    cdir = os.path.join(out_dir, contig)
+    haplosets = os.path.join(cdir, f"{contig}.haplosets")
+    os.makedirs(dest)
+    absent = os.path.join(dest, "absent.contig.haplosets")
+    shutil.copyfile(haplosets, absent)
+    calls = {
+        "haplotag_bam": ["-t", haplosets, "-b", bam, "-n", contig,
+                         "-o", os.path.join(dest, "haplotag_bam")],
+        "haplotag_output_dir": ["-d", out_dir, "-b", bam, "-o",
+                                os.path.join(dest, "haplotag_output_dir")],
+        "get_bam_partition": ["-t", haplosets, "-b", bam, "-p",
+                              os.path.join(dest, "part-")],
+        "get_bam_partition absent contig": [
+            "-t", absent, "-b", bam, "-p", os.path.join(dest, "all-")],
+        "output_snpped_contigs": [
+            "-f", fasta, "-v", vcf, "-o", os.path.join(dest, "contigs.fa"),
+            "-t", os.path.join(cdir, f"{contig}.vartigs")]}
+    # The -o directory first: it holds the simulation's directory name.
+    marks = ((out_dir, OUT_MARK), (dest, DEST_MARK), (sim_dir, SIM_MARK))
+
+    def mark(data):
+        for path, m in marks:
+            data = data.replace(path.encode(), m.encode())
+        return data
+
+    out = {}
+    for call, argv in calls.items():
+        before = set(os.listdir(dest))
+        lines = run(call.split()[0], argv)
+        files = {}
+        for f in sorted(set(os.listdir(dest)) - before):
+            with open(os.path.join(dest, f), "rb") as fh:
+                files[f] = hashlib.sha256(mark(fh.read())).hexdigest()
+        out[call] = {"files": files,
+                     "stdout": [mark(ln.encode()).decode() for ln in lines]}
+    return out
+
+
 def tools_phase(tmp, sim_dir, out_dir, device="cuda:0"):
     """Phase tools: vartig-dump, haplotagging and the frags.txt round
     trip on long3 (the inputs and outputs of phase north_star), each
-    output held to the JAX functions' hash in the golden record."""
+    output held to the JAX functions' hash in the golden record; then
+    the port's four host tools on the same run, each output file and
+    stdout line held to the JAX scripts' (tests/data/scripts_golden.json).
+    """
     golden = load_north_star()
     want = golden["tools"]
     contig = golden["configs"]["long3"]["sim_config"]["contig_name"]
@@ -1719,8 +1795,18 @@ def tools_phase(tmp, sim_dir, out_dir, device="cuda:0"):
     if got != want:
         raise AssertionError(f"tools: {got} differs from the JAX "
                              f"functions' {want}")
+    with open(GOLDEN_SCRIPTS) as fh:
+        want_scripts = json.load(fh)["long3"]
+    scripts = scripts_outputs(sim_dir, out_dir, contig,
+                              os.path.join(tmp, "scripts"))
+    for call in sorted(set(want_scripts) | set(scripts)):
+        if scripts.get(call) != want_scripts.get(call):
+            raise AssertionError(f"tools: {call} gives {scripts.get(call)}"
+                                 f", the JAX script "
+                                 f"{want_scripts.get(call)}")
     emit({"phase": "tools", "config": "long3", "outputs_equal_to_jax":
-          sorted(got)})
+          sorted(got), "scripts_equal_to_jax": sorted(scripts),
+          "script_files": sum(len(c["files"]) for c in scripts.values())})
 
 
 def workload_blocks(G=8, R=320, S=2048):

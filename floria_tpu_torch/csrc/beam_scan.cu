@@ -40,7 +40,7 @@
 //     partial sums are reduced once per step over distributed shared
 //     memory, and every CTA repeats the small bookkeeping.
 // Exactness: counts, same/diff sums and scores are integer quanta (int64,
-// scores as f64 integers < 2^53), fingerprints wrap in u32 as the
+// scores as f64 integers < 2^53), fingerprint terms wrap in u32 as the
 // reference's do; only the binomial-tail / log-sum-exp prune is
 // transcendental (f64, CUDA libdevice log/exp), evaluated as before.
 // Compiled with -fmad=false so it rounds like the plain PyTorch path.
@@ -106,7 +106,7 @@ struct Layout {
     diffq = take(o, 8 * N1);
     part = take(o, 8 * 2 * NR * 3);       // sq, dq, ne
     ph = take(o, 4 * N1 * NF);
-    hh = take(o, 4 * N1 * NF);
+    hh = take(o, 8 * N1 * NF);
     fpp = take(o, 4 * 2 * NR * NF);       // fingerprint partials
     sel = take(o, 4 * B1);
     la = take(o, 4 * N1);
@@ -220,7 +220,8 @@ __global__ void __launch_bounds__(NT) beam_scan_kernel(
   unsigned long long* part =
       reinterpret_cast<unsigned long long*>(smem + L.part);  // [2][NR][3]
   unsigned* ph = reinterpret_cast<unsigned*>(smem + L.ph);       // [N1][NF]
-  unsigned* hh = reinterpret_cast<unsigned*>(smem + L.hh);       // [N1][NF]
+  unsigned long long* hh =
+      reinterpret_cast<unsigned long long*>(smem + L.hh);       // [N1][NF]
   unsigned* fpp = reinterpret_cast<unsigned*>(smem + L.fpp);   // [2][NR][NF]
   int* sel = reinterpret_cast<int*>(smem + L.sel);               // [B1]
   int* la = reinterpret_cast<int*>(smem + L.la);                 // [N1]
@@ -468,9 +469,11 @@ __global__ void __launch_bounds__(NT) beam_scan_kernel(
     int nf = block_compact(N, [&](int i) { return cand[i] < INF; }, la,
                            wsum);
 
-    // --- Dedup: wrapping-u32 fingerprints of the truncated blocks. A
-    // candidate is a duplicate when an earlier finite one with an equal
-    // fingerprint scores at least as high. ---
+    // --- Dedup: fingerprints of the truncated blocks. A candidate is a
+    // duplicate when an earlier finite one with an equal fingerprint
+    // scores at least as high. Each part's mixed term and the read's own
+    // term wrap in u32; their sum does not (the reference reduces them
+    // in u64 under x64), so it is kept in 64 bits. ---
     if (dedup) {
       for (int k = tid; k < nf; k += NT) {
         const int i = la[k];
@@ -478,10 +481,10 @@ __global__ void __launch_bounds__(NT) beam_scan_kernel(
         const int p = i - b * P;
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
-          unsigned h = 0u;
-          for (int q = 0; q < P; ++q) h += ph[(b * P + q) * NF + f] *
-                                           gmix[f * P + q];
-          hh[i * NF + f] = h + gmix[f * P + p] * rc[f];
+          unsigned long long h = 0ull;
+          for (int q = 0; q < P; ++q)
+            h += (unsigned)(ph[(b * P + q) * NF + f] * gmix[f * P + q]);
+          hh[i * NF + f] = h + (unsigned)(gmix[f * P + p] * rc[f]);
         }
       }
       __syncthreads();

@@ -3,7 +3,9 @@
 One beam slot's state is its part-wise allele counts [P, A, S] plus its
 cumulative MEC score; one step inserts one read into every live slot,
 prunes with the binomial tail + log-sum-exp posterior, dedups duplicate
-truncated blocks by wrapping-u32 fingerprints, and keeps the best
+truncated blocks by fingerprints (per part a wrapping-u32 sum; for a
+candidate the exact sum of its parts' and its read's wrapped u32
+products, as the reference's x64 reduction leaves it), and keeps the best
 `out_slots` candidates in (score asc, generation asc) order. The first
 BEAM_WARMUP_READS reads keep ploidy * W slots, a transition step selects
 W, the rest scan W slots (global_clustering.rs:10-208).
@@ -233,10 +235,13 @@ def beam_scan_plain(alleles, weights, num_reads, eps64, epsq, num_parts,
                 ph = torch.zeros((G, B, P + 1), dtype=i64, device=dev)
                 ph = ph.scatter_add_(2, hidx, zt[:, None, :].expand(
                     G, B, t))[:, :, 1:] & MASK32                 # [G,B,P]
-                base = _mul32(ph, gmix[f][None, None, :]).sum(-1) & MASK32
+                # The reference sums its wrapped u32 products in u64
+                # (x64 promotes the sum), so the P + 1 terms add without
+                # a final wrap.
+                base = _mul32(ph, gmix[f][None, None, :]).sum(-1)
                 own = _mul32(gmix[f][None, :], rc[:, None])      # [G, P]
-                hv.append(((base[:, :, None] + own[:, None, :])
-                           & MASK32).reshape(G, N))
+                hv.append((base[:, :, None] + own[:, None, :])
+                          .reshape(G, N))
             flat = cand.reshape(G, N)
             finite = torch.isfinite(flat)
             gen = torch.arange(N, device=dev)

@@ -4,6 +4,7 @@ live flags and traceback assignments. The one stated exception is the
 binomial-tail value itself, whose last bits depend on the backend's
 `log`: it is compared at rtol=1e-12, decisions bitwise."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -311,6 +312,60 @@ def test_frontier_bounds_hold_every_read_and_the_state(case):
                         got = int((c[s0:] * hs[f].T.astype(np.int64)[s0:]
                                    & MASK).sum()) & MASK
                         assert got == want, (g, t, o, q, f)
+
+
+def jax_beam_flips(dispatches):
+    """Recorded beam dispatches (chip_smoke.DispatchRecorder's `beam`:
+    (inputs, P, W, kwargs, (result, assignments)) of the port's sweep)
+    against the JAX beam, `_beam_search_batch_mixed_jit` and
+    `traceback_batch` on JAX's CPU backend, instance by instance.
+    Returns (instances compared, [(dispatch, instance)] whose parent or
+    part records, scores, live flags or final assignment differ)."""
+    n, flips = 0, []
+    for d, ((al, wt, nr, ep, npt), P, W, kw, (res, asg)) in enumerate(
+            dispatches):
+        args = [t.cpu().numpy() for t in (al, wt, nr, ep, npt)]
+        with jax.enable_x64():
+            ref = B._beam_search_batch_mixed_jit(
+                *args, P, W, kw["max_alleles"], kw["window"],
+                kw.get("dedup", True))
+            ref_asg = np.asarray(B.traceback_batch(ref))
+        ref = [np.asarray(a) for a in ref]
+        got = [t.cpu().numpy() for t in res]
+        asg = asg.cpu().numpy()
+        assert [a.dtype for a in got] == [a.dtype for a in ref]
+        assert [a.shape for a in got] == [a.shape for a in ref]
+        assert asg.dtype == ref_asg.dtype and asg.shape == ref_asg.shape
+        for g in range(al.shape[0]):
+            n += 1
+            if not (all(np.array_equal(a[g], b[g]) for a, b in zip(ref, got))
+                    and np.array_equal(ref_asg[g], asg[g])):
+                flips.append((d, g))
+    return n, flips
+
+
+def test_recorded_sweep_dispatches_match_jax_decision_by_decision(
+        tmp_path):
+    """The port's CLI on long3 (CPU): every beam dispatch of its sweep,
+    as recorded, against the JAX beam instance by instance; a record
+    changed in one instance is counted as one flip."""
+    import chip_smoke
+
+    entry = chip_smoke.load_north_star()["configs"]["long3"]
+    sim_dir = str(tmp_path / "long3")
+    chip_smoke.simulate_case(entry, sim_dir)
+    with chip_smoke.DispatchRecorder() as rec:
+        chip_smoke.run_cli(sim_dir, str(tmp_path / "out"), device="cpu",
+                           extra=chip_smoke.case_args(entry, sim_dir))
+    assert {P for _i, P, *_rest in rec.beam} >= {2, 3}
+    n, flips = jax_beam_flips(rec.beam)
+    assert n >= len(rec.beam) > 0 and flips == []
+    inputs, P, W, kw, (res, asg) = rec.beam[-1]
+    main_parts = res.main_parts.clone()
+    main_parts[-1, 0, 0] ^= 1
+    _n, flips = jax_beam_flips(
+        [(inputs, P, W, kw, (res._replace(main_parts=main_parts), asg))])
+    assert flips == [(0, inputs[0].shape[0] - 1)]
 
 
 def test_cuda_tensor_without_card_raises():

@@ -9,7 +9,10 @@ wait; the sharded beam and sweep (parallel/mesh.py) against the
 unsharded run, two shards on one card, and on two cards where a machine
 has them; and the port's CLI on the card against the JAX package's
 pipeline on JAX's CPU backend, in one process, on the round's small
-configs.
+configs; and K1's prune and dedup decisions on the main path's own beam
+dispatches (long3 and config4, every level; ecoli2's largest, at P=2
+and P=3) against the JAX beam on JAX's CPU backend, instance by
+instance.
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -18,12 +21,14 @@ without one (decided inside the fixture). On a machine with a card:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dedup_case, nw_case, windowed_case, workload_blocks
+from chip_smoke import (dedup_case, nvidia_smi_line, nw_case, windowed_case,
+                        workload_blocks)
 from floria_tpu_torch import entry, state
 from floria_tpu_torch.kernels import _build
 from floria_tpu_torch.kernels import beam as TB
@@ -32,6 +37,7 @@ from floria_tpu_torch.kernels import upem_batch as TU
 from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.phase import local as TL
 from test_beam_pallas import _make
+from test_torch_beam import jax_beam_flips
 from test_torch_oracle_configs import SMALL, run_both
 from test_torch_climb_kernel import CASES as CLIMB_CASES, climb_case
 from test_torch_upem import CASES, _batch, moves_case
@@ -674,3 +680,61 @@ def test_cuda_cli_matches_jax_cpu(name, dev, tmp_path):
     _build.LAUNCHES.clear()
     run_both(name, tmp_path, device="cuda:0", port_cli=True)
     assert _build.LAUNCHES["beam_scan"] > 0
+
+
+def _recorded_sweep(case, tmp_path):
+    """The port's CLI on cuda:0 on a config of the golden record (its
+    outputs held to the JAX CLI's hashes) or on bench.py's `ecoli2`, its
+    sweep's beam dispatches recorded (chip_smoke.DispatchRecorder)."""
+    import chip_smoke
+    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+
+    sim_dir, out_dir = str(tmp_path / case), str(tmp_path / "out")
+    entry = chip_smoke.load_north_star()["configs"].get(case)
+    if entry is not None:
+        chip_smoke.simulate_case(entry, sim_dir)
+        extra = chip_smoke.case_args(entry, sim_dir)
+    else:
+        simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
+        extra = []
+    with chip_smoke.DispatchRecorder() as rec:
+        chip_smoke.run_cli(sim_dir, out_dir, device="cuda:0", extra=extra)
+    if entry is not None:
+        chip_smoke.assert_golden_outputs(case, out_dir,
+                                         entry["outputs_sha256"])
+    return rec.beam
+
+
+@pytest.mark.parametrize("case", ["long3", "config4", "ecoli2"])
+def test_k1_decisions_match_jax_beam(case, dev, tmp_path):
+    """K1's prune and dedup decisions against the JAX beam, instance by
+    instance: the main path's beam dispatches on cuda:0 (long3, where a
+    candidate fingerprint that wrapped its sum dropped four live
+    candidates the JAX beam keeps, and config4: every one, sweep levels
+    2-5; ecoli2: its largest, G=115, R=256, S=2048, as dispatched at P=2
+    and on the same blocks at P=3 through K1 again) against
+    `_beam_search_batch_mixed_jit` + `traceback_batch` on JAX's CPU
+    backend. No instance may differ in its parent or part records,
+    scores, live flags or final assignment."""
+    dispatches = _recorded_sweep(case, tmp_path)
+    if case != "ecoli2":
+        want = {2, 3, 4, 5} if case == "config4" else {2, 3}
+        assert {P for _inp, P, *_r in dispatches} >= want
+    else:
+        (al, wt, nr, ep, npt), P, W, kw, out = max(
+            dispatches, key=lambda d: d[0][0].shape[0])
+        assert tuple(al.shape) == (115, 256, 2048) and P == 2
+        npt3 = torch.full_like(npt, 3)
+        again = TB.beam_search_traceback(
+            al, wt, nr, ep, npt3, 3, W, max_alleles=kw["max_alleles"],
+            window=kw["window"], device=dev)
+        dispatches = [((al, wt, nr, ep, npt), P, W, kw, out),
+                      ((al, wt, nr, ep, npt3), 3, W, kw, again)]
+    n, flips = jax_beam_flips(dispatches)
+    print("K1_VS_JAX " + json.dumps({
+        "case": case, "dispatches": len(dispatches), "instances": n,
+        "differing_instances": len(flips), "flips": flips[:20],
+        "levels": sorted({d[1] for d in dispatches}),
+        "largest_G_R_S": max(tuple(d[0][0].shape) for d in dispatches),
+        "nvidia_smi": nvidia_smi_line()}))
+    assert n > 0 and flips == []

@@ -1,10 +1,11 @@
 """The port stands alone: no module of `floria_tpu_torch` and no line of
 chip_smoke.py imports jax or the JAX package `floria_tpu` (checked on
 the sources, at any nesting level, and at run time, where the port's CLI
-runs end to end in a process that refuses both), its copied host
-modules read and write what the reference's do, its native library and
-its CUDA kernels build once under concurrent processes, `--device cuda`
-without a card raises, and the multi-device flags reach the mesh."""
+and its four host tools run end to end in a process that refuses both),
+its copied host modules read and write what the reference's do, its
+native library and its CUDA kernels build once under concurrent
+processes, `--device cuda` without a card raises, and the multi-device
+flags reach the mesh."""
 
 import ast
 import dataclasses
@@ -101,6 +102,93 @@ def test_cli_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert "JAXFREE_OK" in proc.stdout
     contig_dir = tmp_path / "out" / "sim_contig"
     assert (contig_dir / "sim_contig.vartigs").stat().st_size > 0
+
+
+def test_scripts_import_only_the_port_and_the_standard_library():
+    """The four host tools under floria_tpu_torch/scripts/ import the
+    standard library and the port's own modules (relative imports that
+    stay inside the package), nothing else: no jax, no `floria_tpu`,
+    not even numpy directly."""
+    root = os.path.join(PKG, "scripts")
+    tools = sorted(f[:-3] for f in os.listdir(root)
+                   if f.endswith(".py") and f != "__init__.py")
+    assert tools == ["get_bam_partition", "haplotag_bam",
+                     "haplotag_output_dir", "output_snpped_contigs"]
+    for f in ["__init__"] + tools:
+        with open(os.path.join(root, f + ".py")) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                # scripts/ lies one level below the package root.
+                assert node.level <= 2, (f, node.module)
+                continue
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     else [])
+            for mod in names:
+                assert mod.split(".")[0] in sys.stdlib_module_names, \
+                    (f, mod)
+        if f != "__init__":
+            assert any(isinstance(n, ast.FunctionDef) and n.name == "main"
+                       for n in tree.body), f
+
+
+_TOOLS_CHILD = _REFUSE + r"""
+import os, runpy
+from floria_tpu_torch.ingest.bam import BamFile
+from floria_tpu_torch.ingest.vcf import read_vcf
+from floria_tpu_torch.sim.simulate import SimConfig, simulate
+sim, out = {sim!r}, {out!r}
+cfg = SimConfig(contig_len=12_000, num_strains=2, num_snps=60,
+                coverage_per_strain=4.0, read_length=2_000,
+                read_length_sd=300.0, error_rate=0.01, seed=9)
+simulate(cfg, sim)
+contig = cfg.contig_name
+names = [r.qname for r in BamFile(sim + "/sim.bam").fetch(contig)]
+os.makedirs(os.path.join(out, contig))
+haplosets = os.path.join(out, contig, contig + ".haplosets")
+with open(haplosets, "w") as fh:
+    for k in range(2):
+        fh.write(f">HAP{{k}}.x\tCONTIG:{{contig}}\tHAPQ:60\n")
+        fh.writelines(f"{{n}}\t1\t9\n" for n in names[k::2])
+cv = read_vcf(sim + "/sim.vcf", [contig]).get(contig)
+vartigs = os.path.join(out, contig, contig + ".vartigs")
+with open(vartigs, "w") as fh:
+    fh.write(f">HAP0.x\tCONTIG:{{contig}}\tSNPRANGE:1-4\tBASERANGE:"
+             f"{{cv.snp_to_gn(1) + 1}}-{{cv.snp_to_gn(4) + 1}}\n01?1\n")
+for name, argv in (
+        ("haplotag_bam", ["-t", haplosets, "-b", sim + "/sim.bam",
+                          "-o", out + "/tagged", "-n", contig]),
+        ("haplotag_output_dir", ["-d", out, "-b", sim + "/sim.bam",
+                                 "-o", out + "/all"]),
+        ("get_bam_partition", ["-t", haplosets, "-b", sim + "/sim.bam",
+                               "-p", out + "/part-"]),
+        ("output_snpped_contigs", ["-f", sim + "/sim.fa", "-v",
+                                   sim + "/sim.vcf", "-o", out + "/c.fa",
+                                   "-t", vartigs])):
+    # As `python -m floria_tpu_torch.scripts.<name>` runs it.
+    sys.argv = [name, *argv]
+    runpy.run_module("floria_tpu_torch.scripts." + name,
+                     run_name="__main__", alter_sys=True)
+""" + _UNLOADED + r"""
+print("JAXFREE_OK", sorted(f for f in os.listdir(out) if "." in f))
+"""
+
+
+def test_tools_run_with_jax_and_the_reference_blocked(tmp_path):
+    """The four host tools, each run as its module's __main__, in a
+    process that refuses jax and `floria_tpu`."""
+    code = _TOOLS_CHILD.format(repo=REPO, sim=str(tmp_path / "sim"),
+                               out=str(tmp_path / "out"))
+    proc = _run(code, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == ("JAXFREE_OK ['all.bam', 'c.fa', 'part-0.bam', "
+                         "'part-1.bam', 'tagged.bam']")
+    assert "Completed and written to output file" in lines
+    c_fa = (tmp_path / "out" / "c.fa").read_text().splitlines()
+    assert c_fa[0] == ">HAP0.x" and "N" in c_fa[1]
 
 
 _IMPORT_ALL = r"""
