@@ -107,6 +107,16 @@ each; any failure raises (exit code != 0):
                 kbp, 2 strains, 300 SNPs, 8x per strain, 6 kbp reads): the
                 same bytes, each rank's launch counts (every rank must
                 launch K1 and K6, none K4), both wall times;
+ decisions   - in phases 4 (`ecoli2`'s second run), 7b (each config),
+                7c (`config4`'s second run) and 8d (`multi500` in one
+                process and as two ranks, each rank recording its own):
+                every sweep of the run recorded (SweepRecorder)
+                and held block by block to the JAX CLI's own sweep on the
+                same inputs, tests/data/sweep_golden.json (the inputs'
+                sha256, and per contig each block's digest of its chosen
+                ploidy, assignment, MEC and expected-error vectors);
+                blocks compared and differing per config, and in sum
+                after phase 8; one differing block fails the run;
   9. summary  - K1's and K4's times at the `ecoli2` dispatch (P=2, P=3)
                 and on the sweep, and K4's at the timed later iteration,
                 beside their bounds and the `ecoli2` launch counts; K6's
@@ -187,6 +197,10 @@ OUT_MARK, SIM_MARK = "<out>", "<sim>"
 # output directory.
 GOLDEN_SCRIPTS = os.path.join(REPO, "tests", "data", "scripts_golden.json")
 DEST_MARK = "<dest>"
+# Per config, the sha256 of the simulated inputs and, per contig, the
+# block_digest of each block of the JAX CLI's own sweep, in block order
+# (written by tests/test_torch_decisions_a.py).
+GOLDEN_SWEEP = os.path.join(REPO, "tests", "data", "sweep_golden.json")
 # bench.py's `ecoli2` e2e community (bench.py:134).
 ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
               coverage_per_strain=50.0, read_length=9_000,
@@ -948,29 +962,173 @@ def climb_ab(ups, P, A, label):
 class ClimbRecorder:
     """Keeps the inputs of every UPEM climb the sweep runs while active,
     as (ploidy, (alleles, weights, num_reads, eps, assign0),
-    max_alleles). The climb copies assign0 before refining it."""
+    max_alleles), and in `outputs` each climb's result (best, mec,
+    diff); in `mec1` the ploidy-1 MEC of each fused level-2 dispatch
+    (and of each level-1 one) as (alleles, eps, max_alleles, mec). The
+    climb copies assign0 before refining it."""
 
     def __init__(self):
+        import threading
+
         from floria_tpu_torch.phase import local
 
         self.local = local
-        self.climbs = []
+        self.climbs, self.outputs, self.mec1 = [], [], []
+        # A sharded sweep climbs on one host thread per shard.
+        self._lock = threading.Lock()
 
     def __enter__(self):
         self._upem = self.local.upem_optimize_device
+        self._eval = self.local.upem_eval
 
         def upem(alleles, weights, assign0, nr, ep, ploidy, max_alleles, *,
                  device):
-            self.climbs.append((ploidy, (alleles, weights, nr, ep, assign0),
-                                max_alleles))
-            return self._upem(alleles, weights, assign0, nr, ep, ploidy,
-                              max_alleles, device=device)
+            with self._lock:
+                self.climbs.append((ploidy, (alleles, weights, nr, ep,
+                                             assign0), max_alleles))
+                self.outputs.append(None)
+                i = len(self.outputs) - 1
+            self.outputs[i] = self._upem(alleles, weights, assign0, nr, ep,
+                                         ploidy, max_alleles, device=device)
+            return self.outputs[i]
+
+        def evaluate(mode, alleles, weights, assign, ep, ploidy,
+                     max_alleles, *args):
+            out = self._eval(mode, alleles, weights, assign, ep, ploidy,
+                             max_alleles, *args)
+            if mode == "mec" and ploidy == 1:
+                self.mec1.append((alleles, ep, max_alleles, out))
+            return out
 
         self.local.upem_optimize_device = upem
+        self.local.upem_eval = evaluate
         return self
 
     def __exit__(self, *exc):
         self.local.upem_optimize_device = self._upem
+        self.local.upem_eval = self._eval
+
+
+class SweepRecorder:
+    """Keeps every call of the ploidy sweep (`phase.local.adaptive_sweep`,
+    as `phase_contigs_blocks` and `entry.dryrun_multichip` call it) while
+    active: its [(key, BlockTensor)] blocks, its Options, its result
+    ({key: (ploidy, assignment)}, {key: mec}, {key: expected_errors})
+    and the contig names of its block keys' first index (None where no
+    pipeline called it). It only reads what the sweep returns: no copy,
+    no device wait. `modules` = (phase.local, pipeline, entry) of the
+    package to record; the default is the port's."""
+
+    def __init__(self, modules=None):
+        if modules is None:
+            from floria_tpu_torch import entry, pipeline
+            from floria_tpu_torch.phase import local
+
+            modules = (local, pipeline, entry)
+        self.local, self.pipeline, self.entry = modules
+        self.sweeps = []
+        self._contigs = None
+
+    def __enter__(self):
+        self._sweep = self.local.adaptive_sweep
+        self._phase = self.pipeline.phase_contigs_blocks
+
+        def sweep(blocks, options, *args, **kw):
+            out = self._sweep(blocks, options, *args, **kw)
+            self.sweeps.append((list(blocks), options, out, self._contigs))
+            return out
+
+        def phase(per_contig, *args, **kw):
+            self._contigs = [c[0] for c in per_contig]
+            try:
+                return self._phase(per_contig, *args, **kw)
+            finally:
+                self._contigs = None
+
+        self.local.adaptive_sweep = sweep
+        self.pipeline.phase_contigs_blocks = phase
+        if self.entry is not None:
+            self.entry.adaptive_sweep = sweep
+        return self
+
+    def __exit__(self, *exc):
+        self.local.adaptive_sweep = self._sweep
+        self.pipeline.phase_contigs_blocks = self._phase
+        if self.entry is not None:
+            self.entry.adaptive_sweep = self._sweep
+
+
+def block_digest(ploidy, assignment, mec, expected) -> str:
+    """The first 16 hex digits of the sha256 of one block's sweep result:
+    its chosen ploidy, its assignment's dtype and bytes, and its MEC and
+    expected-error vectors' dtypes and bytes."""
+    h = hashlib.sha256(str(int(ploidy)).encode())
+    for a in (assignment, mec, expected):
+        a = np.ascontiguousarray(a)
+        h.update(f"|{a.dtype.str}{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def sweep_digests(sweeps):
+    """{contig: [block_digest of each block, in block order]} over the
+    pipeline's recorded sweeps (SweepRecorder.sweeps)."""
+    out = {}
+    for blocks, _opts, (chosen, mec, expected), contigs in sweeps:
+        if contigs is None:
+            continue
+        for (ci, j), _bt in sorted(blocks, key=lambda b: b[0]):
+            out.setdefault(contigs[ci], []).append(block_digest(
+                *chosen[(ci, j)], mec[(ci, j)], expected[(ci, j)]))
+    return out
+
+
+def input_sha256(sim_dir):
+    """{input file: sha256} of a simulated community in `sim_dir`."""
+    return {f: _sha256(os.path.join(sim_dir, f)) for f in sorted(
+        os.listdir(sim_dir)) if f.startswith("sim") and
+        f.endswith((".bam", ".vcf", ".fa"))}
+
+
+DECISIONS = []
+
+
+def hold_decisions(config, got, sim_dir, run=None):
+    """Phase decisions, for one run (`run` names it beside `config`): its
+    sweeps' block digests (`got`, sweep_digests of what SweepRecorder
+    recorded) held block by block to the JAX CLI's sweep on the same
+    inputs (GOLDEN_SWEEP). Emits and keeps (in DECISIONS) the blocks
+    compared and differing; raises if an input or any block differs."""
+    with open(GOLDEN_SWEEP) as fh:
+        want = json.load(fh)["configs"][config]
+    if input_sha256(sim_dir) != want["inputs_sha256"]:
+        raise AssertionError(f"decisions {config}: the simulated inputs "
+                             "differ from the golden record's")
+    if sorted(got) != sorted(want["contigs"]):
+        raise AssertionError(f"decisions {config}: phased contigs "
+                             f"{sorted(got)[:5]}..., the JAX CLI's "
+                             f"{sorted(want['contigs'])[:5]}...")
+    compared = differing = 0
+    first = []
+    for contig, blocks in sorted(want["contigs"].items()):
+        mine = got[contig]
+        compared += len(blocks)
+        bad = [j for j in range(max(len(blocks), len(mine)))
+               if blocks[j:j + 1] != mine[j:j + 1]]
+        differing += len(bad)
+        first += [(contig, j) for j in bad[:3]]
+    if run is not None:
+        config = f"{config} {run}"
+    rec = {"phase": "decisions", "config": config, "contigs": len(got),
+           "blocks_compared": compared, "blocks_differing": differing,
+           "first_differing": first[:10]}
+    emit(rec)
+    DECISIONS.append(rec)
+    if differing or not compared:
+        raise AssertionError(f"decisions {config}: {differing} of "
+                             f"{compared} blocks differ from the JAX "
+                             f"sweep's: {first[:10]}")
+    return rec
 
 
 class SyncCheck:
@@ -1168,8 +1326,10 @@ def e2e_ecoli2(tmp):
 
     _build.LAUNCHES.clear()
     with DispatchRecorder() as recorder, SweepCounter() as counter, \
-            ClimbRecorder() as climbs, SyncCheck() as sync:
+            ClimbRecorder() as climbs, SyncCheck() as sync, \
+            SweepRecorder() as sweeps:
         rec, second = one_run("second")
+    hold_decisions("ecoli2", sweep_digests(sweeps.sweeps), sim_dir)
     rec["launches"] = dict(_build.LAUNCHES)
     rec["sync_check"] = sync.summary()
     rec.update(counter.summary())
@@ -1466,9 +1626,11 @@ def north_star_phase(tmp, device="cuda:0"):
     for name, entry in golden.items():
         if name == "config4":
             continue
-        rec, sim_dir, out_dir, _truth = run_golden_case(name, entry, tmp,
-                                                        device)
+        with SweepRecorder() as sweeps:
+            rec, sim_dir, out_dir, _truth = run_golden_case(
+                name, entry, tmp, device)
         emit(rec)
+        hold_decisions(name, sweep_digests(sweeps.sweeps), sim_dir)
         dirs[name] = (sim_dir, out_dir)
     return dirs
 
@@ -1576,6 +1738,7 @@ def config4_phase(tmp, device="cuda:0"):
     out_dir = os.path.join(tmp, "config4_out")
     on_card = torch.device(device).type == "cuda"
     counter, climbs, sync = SweepCounter(), ClimbRecorder(), SyncCheck()
+    sweeps = SweepRecorder()
     recs = {}
     for label in ("first", "second", "traced") if on_card else ("first",
                                                                  "second"):
@@ -1587,6 +1750,7 @@ def config4_phase(tmp, device="cuda:0"):
             if label == "second":
                 stack.enter_context(counter)
                 stack.enter_context(climbs)
+                stack.enter_context(sweeps)
                 if on_card:
                     stack.enter_context(sync)
             prof = (stack.enter_context(profile(
@@ -1623,6 +1787,8 @@ def config4_phase(tmp, device="cuda:0"):
                                 counter.expected_launches())
             if rec["instances_moved"] <= 0:
                 raise AssertionError("config4: no climb moved a read")
+            hold_decisions("config4", sweep_digests(sweeps.sweeps),
+                           sim_dir)
         emit(rec)
         recs[label] = rec
         kept = out_dir + "_" + label
@@ -1846,16 +2012,22 @@ def _assert_sweeps_equal(label, a, b):
 
 # One rank of the CLI in its own process: the user's entry point, then
 # its launch counts, the seconds of cli.main and its stages, and any jax
-# or `floria_tpu` module it loaded.
+# or `floria_tpu` module it loaded; its sweeps' block digests go to a
+# file.
 RANK = r"""
 import json, sys, time
 sys.path.insert(0, {repo!r})
 from floria_tpu_torch import cli, timing
 from floria_tpu_torch.kernels import _build
+import chip_smoke
 t0 = time.perf_counter()
-cli.main(sys.argv[1:])
+with chip_smoke.SweepRecorder() as rec:
+    cli.main(sys.argv[1:])
+cli_s = time.perf_counter() - t0
+with open({digests!r}, "w") as fh:
+    json.dump(chip_smoke.sweep_digests(rec.sweeps), fh)
 print("RANK " + json.dumps({{"launches": dict(_build.LAUNCHES),
-    "cli_s": time.perf_counter() - t0, "stages_s": dict(timing.STAGE_TIMES),
+    "cli_s": cli_s, "stages_s": dict(timing.STAGE_TIMES),
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
 }}))
@@ -1872,8 +2044,9 @@ def _free_port():
 
 def run_ranks(sim_dir, out_dir, nproc, timeout=600):
     """The port's CLI as `nproc` ranks on the card (the coordinator on
-    localhost). Returns (wall seconds, [each rank's record: launch
-    counts, seconds in cli.main, stage seconds]);
+    localhost), each rank recording its sweeps. Returns (wall seconds,
+    [each rank's record: launch counts, seconds in cli.main, stage
+    seconds], the ranks' sweep_digests merged);
     raises unless every rank exits 0; kills them all on the way out. Each
     rank writes its output to files beside `out_dir` (a rank blocked on
     a full pipe would hold the other at the barrier)."""
@@ -1883,7 +2056,6 @@ def run_ranks(sim_dir, out_dir, nproc, timeout=600):
             "--overwrite", "--device", "cuda",
             "--num-processes", str(nproc),
             "--coordinator", f"127.0.0.1:{_free_port()}"]
-    code = RANK.format(repo=REPO)
     logs = [f"{out_dir}.{nproc}.rank{k}" for k in range(nproc)]
     t0 = time.perf_counter()
     procs = []
@@ -1891,6 +2063,7 @@ def run_ranks(sim_dir, out_dir, nproc, timeout=600):
         for k, log in enumerate(logs):
             with open(log + ".out", "w") as out, \
                     open(log + ".err", "w") as err:
+                code = RANK.format(repo=REPO, digests=log + ".digests")
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", code, *argv, "--process-id",
                      str(k)], stdout=out, stderr=err))
@@ -1902,7 +2075,7 @@ def run_ranks(sim_dir, out_dir, nproc, timeout=600):
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    ranks = []
+    ranks, digests = [], {}
     for k, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             with open(log + ".err") as fh:
@@ -1914,7 +2087,9 @@ def run_ranks(sim_dir, out_dir, nproc, timeout=600):
         if rec.pop("loaded"):
             raise AssertionError(f"rank {k} loaded jax or floria_tpu")
         ranks.append(rec)
-    return wall, ranks
+        with open(log + ".digests") as fh:
+            digests.update(json.load(fh))
+    return wall, ranks, digests
 
 
 def _shared_tree(root):
@@ -2034,7 +2209,9 @@ def parallel_phase(dev, recorder, tmp):
     out_dir = os.path.join(tmp, "multi_out")
     runs = {}
     for nproc in (1, 2):
-        wall, ranks = run_ranks(sim_dir, out_dir, nproc)
+        wall, ranks, digests = run_ranks(sim_dir, out_dir, nproc)
+        hold_decisions(f"multi{MULTI_CONTIGS}", digests, sim_dir,
+                       run=None if nproc == 1 else "two ranks")
         for k, rank in enumerate(ranks):
             assert_launches(f"rank {k} of {nproc}", rank["launches"])
         kept = f"{out_dir}_{nproc}"
@@ -2255,6 +2432,11 @@ def main(argv=None) -> None:
                                 for cfg, recs in runs.items()},
           "peak_device_bytes": {cfg: recs["first"]["peak_device_bytes"]
                                 for cfg, recs in runs.items()}})
+    emit({"phase": "decisions", "configs": len(DECISIONS),
+          "blocks_compared": {r["config"]: r["blocks_compared"]
+                              for r in DECISIONS},
+          "blocks_differing": sum(r["blocks_differing"] for r in DECISIONS),
+          "golden": os.path.relpath(GOLDEN_SWEEP, REPO)})
     if args.ab_inputs:
         torch.save(AB_CASES, args.ab_inputs)
 

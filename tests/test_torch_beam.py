@@ -314,23 +314,36 @@ def test_frontier_bounds_hold_every_read_and_the_state(case):
                         assert got == want, (g, t, o, q, f)
 
 
+def pad_batch(arrays, G_pad):
+    """numpy arrays padded on axis 0 to G_pad rows with copies of the
+    first, as the JAX sweep pads a dispatch. Instances are independent,
+    so the first rows' results do not change; jit calls at the padded
+    sizes share their compiles."""
+    return [np.concatenate([a, np.repeat(a[:1], G_pad - len(a), axis=0)])
+            for a in arrays]
+
+
 def jax_beam_flips(dispatches):
     """Recorded beam dispatches (chip_smoke.DispatchRecorder's `beam`:
     (inputs, P, W, kwargs, (result, assignments)) of the port's sweep)
     against the JAX beam, `_beam_search_batch_mixed_jit` and
-    `traceback_batch` on JAX's CPU backend, instance by instance.
-    Returns (instances compared, [(dispatch, instance)] whose parent or
-    part records, scores, live flags or final assignment differ)."""
+    `traceback_batch` on JAX's CPU backend, instance by instance, the
+    JAX beam on the batch padded to a power of two (pad_batch; dispatches
+    of a shape bucket then share compiles, and a batch of one or two
+    long-read blocks is not multiplied). Returns (instances compared,
+    [(dispatch, instance)] whose parent or part records, scores, live
+    flags or final assignment differ)."""
     n, flips = 0, []
     for d, ((al, wt, nr, ep, npt), P, W, kw, (res, asg)) in enumerate(
             dispatches):
         args = [t.cpu().numpy() for t in (al, wt, nr, ep, npt)]
+        G = len(args[0])
         with jax.enable_x64():
             ref = B._beam_search_batch_mixed_jit(
-                *args, P, W, kw["max_alleles"], kw["window"],
-                kw.get("dedup", True))
-            ref_asg = np.asarray(B.traceback_batch(ref))
-        ref = [np.asarray(a) for a in ref]
+                *pad_batch(args, 1 << (G - 1).bit_length()), P, W,
+                kw["max_alleles"], kw["window"], kw.get("dedup", True))
+            ref_asg = np.asarray(B.traceback_batch(ref))[:G]
+        ref = [np.asarray(a)[:G] for a in ref]
         got = [t.cpu().numpy() for t in res]
         asg = asg.cpu().numpy()
         assert [a.dtype for a in got] == [a.dtype for a in ref]

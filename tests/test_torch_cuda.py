@@ -9,10 +9,15 @@ wait; the sharded beam and sweep (parallel/mesh.py) against the
 unsharded run, two shards on one card, and on two cards where a machine
 has them; and the port's CLI on the card against the JAX package's
 pipeline on JAX's CPU backend, in one process, on the round's small
-configs; and K1's prune and dedup decisions on the main path's own beam
-dispatches (long3 and config4, every level; ecoli2's largest, at P=2
-and P=3) against the JAX beam on JAX's CPU backend, instance by
-instance.
+configs; and the port's decisions on the main path's own recorded calls
+against the JAX package on JAX's CPU backend (the holds of
+tests/test_torch_decisions_a.py): every sweep block by block, every K1
+beam dispatch, K6 climb and fused level 2's ploidy-1 MEC instance by
+instance, on the 13 North-star configs, ecoli2 (and its largest
+dispatch at P=3) and multi500; and K5 at ecoli2's partition job by job
+(best allele and scores). Those run with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q -s -k decisions
 
 CUDA kernels have no CPU mode, so these tests need a card and skip
 without one (decided inside the fixture). On a machine with a card:
@@ -37,7 +42,8 @@ from floria_tpu_torch.kernels import upem_batch as TU
 from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.phase import local as TL
 from test_beam_pallas import _make
-from test_torch_beam import jax_beam_flips
+from test_torch_decisions_a import (hold_counts, jax_nw_flips, record_config,
+                                    record_run)
 from test_torch_oracle_configs import SMALL, run_both
 from test_torch_climb_kernel import CASES as CLIMB_CASES, climb_case
 from test_torch_upem import CASES, _batch, moves_case
@@ -683,58 +689,92 @@ def test_cuda_cli_matches_jax_cpu(name, dev, tmp_path):
 
 
 def _recorded_sweep(case, tmp_path):
-    """The port's CLI on cuda:0 on a config of the golden record (its
-    outputs held to the JAX CLI's hashes) or on bench.py's `ecoli2`, its
-    sweep's beam dispatches recorded (chip_smoke.DispatchRecorder)."""
+    """The port's CLI on cuda:0 with its sweeps, beam dispatches, climbs
+    and NW partitions recorded (test_torch_decisions_a.record_run): on a
+    config of the golden record (its outputs held to the JAX CLI's
+    hashes), on bench.py's `ecoli2`, or on config #5's 500-contig
+    community `multi500` in one process."""
     import chip_smoke
-    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+    from floria_tpu_torch.sim.simulate import (SimConfig, simulate,
+                                               simulate_multi)
 
+    if case in chip_smoke.load_north_star()["configs"]:
+        return record_config(case, str(tmp_path), device="cuda:0")
     sim_dir, out_dir = str(tmp_path / case), str(tmp_path / "out")
-    entry = chip_smoke.load_north_star()["configs"].get(case)
-    if entry is not None:
-        chip_smoke.simulate_case(entry, sim_dir)
-        extra = chip_smoke.case_args(entry, sim_dir)
-    else:
+    if case == "ecoli2":
         simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
-        extra = []
-    with chip_smoke.DispatchRecorder() as rec:
-        chip_smoke.run_cli(sim_dir, out_dir, device="cuda:0", extra=extra)
-    if entry is not None:
-        chip_smoke.assert_golden_outputs(case, out_dir,
-                                         entry["outputs_sha256"])
-    return rec.beam
-
-
-@pytest.mark.parametrize("case", ["long3", "config4", "ecoli2"])
-def test_k1_decisions_match_jax_beam(case, dev, tmp_path):
-    """K1's prune and dedup decisions against the JAX beam, instance by
-    instance: the main path's beam dispatches on cuda:0 (long3, where a
-    candidate fingerprint that wrapped its sum dropped four live
-    candidates the JAX beam keeps, and config4: every one, sweep levels
-    2-5; ecoli2: its largest, G=115, R=256, S=2048, as dispatched at P=2
-    and on the same blocks at P=3 through K1 again) against
-    `_beam_search_batch_mixed_jit` + `traceback_batch` on JAX's CPU
-    backend. No instance may differ in its parent or part records,
-    scores, live flags or final assignment."""
-    dispatches = _recorded_sweep(case, tmp_path)
-    if case != "ecoli2":
-        want = {2, 3, 4, 5} if case == "config4" else {2, 3}
-        assert {P for _inp, P, *_r in dispatches} >= want
     else:
-        (al, wt, nr, ep, npt), P, W, kw, out = max(
-            dispatches, key=lambda d: d[0][0].shape[0])
+        simulate_multi(chip_smoke.multi_configs(chip_smoke.MULTI_CONTIGS),
+                       sim_dir)
+    return record_run(sim_dir, out_dir, device="cuda:0")
+
+
+@pytest.mark.parametrize("case", SMALL + ["config4", "ecoli2", "multi500"])
+def test_k1_decisions_match_jax_beam(case, dev, tmp_path):
+    """The port's decisions on the card against the JAX package on JAX's
+    CPU backend, on the main path's own recorded calls
+    (test_torch_decisions_a's holds): every sweep block by block against
+    `adaptive_sweep` (chosen ploidy, assignment, MEC and expected-error
+    vectors), every K1 beam dispatch instance by instance against
+    `_beam_search_batch_mixed_jit` + `traceback_batch` (parent and part
+    records, scores, live flags, final assignment), every K6 climb
+    against `_upem_optimize_device_jit` (best, mec, diff) and every
+    fused level 2's ploidy-1 MEC against `_eval_mec`. The 12 small
+    configs, config4 (sweep levels 2-5), ecoli2 (its six dispatches, and
+    its largest, G=115, R=256, S=2048, also on the same blocks at P=3
+    through K1 again) and multi500 (config #5, 500 contigs, one
+    process). Nothing may differ."""
+    rec = _recorded_sweep(case, tmp_path)
+    levels = {P for _inp, P, *_r in rec.beams}
+    if case in ("long3", "config4"):
+        assert levels >= ({2, 3, 4, 5} if case == "config4" else {2, 3})
+    if case == "ecoli2":
+        (al, wt, nr, ep, npt), P, W, kw, _out = max(
+            rec.beams, key=lambda d: d[0][0].shape[0])
         assert tuple(al.shape) == (115, 256, 2048) and P == 2
         npt3 = torch.full_like(npt, 3)
         again = TB.beam_search_traceback(
             al, wt, nr, ep, npt3, 3, W, max_alleles=kw["max_alleles"],
             window=kw["window"], device=dev)
-        dispatches = [((al, wt, nr, ep, npt), P, W, kw, out),
-                      ((al, wt, nr, ep, npt3), 3, W, kw, again)]
-    n, flips = jax_beam_flips(dispatches)
-    print("K1_VS_JAX " + json.dumps({
-        "case": case, "dispatches": len(dispatches), "instances": n,
-        "differing_instances": len(flips), "flips": flips[:20],
-        "levels": sorted({d[1] for d in dispatches}),
-        "largest_G_R_S": max(tuple(d[0][0].shape) for d in dispatches),
+        rec.beams.append(((al, wt, nr, ep, npt3), 3, W, kw, again))
+    counts = hold_counts(rec)
+    print("DECISIONS_VS_JAX " + json.dumps({
+        "case": case, "sweeps": len(rec.sweeps),
+        "beam_dispatches": len(rec.beams),
+        "climbs": len(rec.climbs.climbs), "levels": sorted(levels),
+        "largest_G_R_S": max(tuple(d[0][0].shape) for d in rec.beams),
+        **{f"{h}_compared": n for h, (n, _f) in counts.items()},
+        **{f"{h}_differing": len(f) for h, (_n, f) in counts.items()},
+        "first_differing": {h: f[:10] for h, (_n, f) in counts.items()
+                            if f},
         "nvidia_smi": nvidia_smi_line()}))
-    assert n > 0 and flips == []
+    for h, (n, flips) in counts.items():
+        assert n > 0 and flips == [], (case, h, flips[:20])
+
+
+def test_k5_decisions_match_jax_nw(dev, tmp_path):
+    """K5 at ecoli2's one device partition (643,124 unique jobs), as the
+    main path launched it, against the JAX NW on the same packed inputs
+    (test_torch_decisions_a.jax_nw_flips): each job's best allele
+    against `_nw_best_chunked` and, from a second K5 launch that also
+    writes them, each allele's score against `_nw_scores`."""
+    import chip_smoke
+    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+
+    sim_dir = str(tmp_path / "ecoli2")
+    simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
+    with chip_smoke.DispatchRecorder() as rec:
+        chip_smoke.run_cli(sim_dir, str(tmp_path / "out"), device="cuda:0")
+    assert len(rec.nw) == 1
+    args, best = rec.nw[0]
+    assert args[0].shape[0] == 643_124
+    scores = torch.empty((args[0].shape[0], args[5]), dtype=torch.int32,
+                         device=args[0].device)
+    again = TR.nw_best_cuda(*args, scores=scores)
+    assert torch.equal(again, best)
+    n, flips = jax_nw_flips(args, best, scores)
+    print("DECISIONS_VS_JAX " + json.dumps({
+        "case": "ecoli2 NW partition", "jobs_compared": n,
+        "jobs_differing": len(flips), "first_differing": flips[:10],
+        "alleles": args[5], "nvidia_smi": nvidia_smi_line()}))
+    assert n == 643_124 and flips == []
