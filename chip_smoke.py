@@ -55,6 +55,24 @@ each; any failure raises (exit code != 0):
                 Gotoh on the host, bitwise, at the main path's own
                 partition recorded in phase 4 (timed) and on adversarial
                 windows at 4 alleles;
+  6b. instances - the JAX package's instance API on the card
+                (floria_tpu_torch.phase.local `phase_instances` at
+                ploidies 2..5, mixed in one K1 dispatch per shape bucket
+                and dispatch cap, and `refine_instances` at 1..5, one K6
+                climb kernel launch per (ploidy, bucket) and cap, ploidy 1
+                included) on bench.py's two kernel shapes
+                (make_workload(32, 256, 256) and (8, 320, 2048)) and on
+                every block of phase 4's `ecoli2` sweep; on the bench
+                shapes also upem_eval_batch (K6's evaluation kernel) and
+                optimize_many, equal to refine_instances; per case its
+                launches counted from 0, every K1 dispatch and climb held
+                to its plain version on the card, and every (block,
+                ploidy) to the JAX package's digests in
+                tests/data/instances_golden.json; then bench.py's kernel
+                metric (G * R * 3 / elapsed of one mixed dispatch on
+                inputs already on the card) at both shapes and its CPU
+                denominators (`native.baseline_sweep`, faithful and
+                dense) through the port on this host;
   7. parity   - the port's CLI on the `long3` community must write the
                 oracle pipeline's bytes (tests/data/long3_oracle.json);
  7b. north_star - the port's CLI on the round's 12 small configs (the
@@ -201,6 +219,18 @@ DEST_MARK = "<dest>"
 # block_digest of each block of the JAX CLI's own sweep, in block order
 # (written by tests/test_torch_decisions_a.py).
 GOLDEN_SWEEP = os.path.join(REPO, "tests", "data", "sweep_golden.json")
+# Per case of the `instances` phase (bench.py's two kernel shapes and
+# ecoli2's blocks), a digest of the blocks and, per (block, ploidy), the
+# instance_digest of the JAX package's phase_instances assignment and of
+# its refine_instances assignment and (bases, errors) (written by
+# tests/test_torch_instances_b.py).
+GOLDEN_INSTANCES = os.path.join(REPO, "tests", "data",
+                                "instances_golden.json")
+# bench.py's two kernel shapes (`measure_kernel`: G blocks of R reads and
+# S sites, each phased at every ploidy of BENCH_PLOIDIES in one mixed
+# dispatch, beam width 10, two alleles).
+BENCH_SHAPES = ((32, 256, 256), (8, 320, 2048))
+BENCH_PLOIDIES = (2, 3, 4, 5)
 # bench.py's `ecoli2` e2e community (bench.py:134).
 ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
               coverage_per_strain=50.0, read_length=9_000,
@@ -1275,7 +1305,7 @@ def e2e_ecoli2(tmp):
     climb per dispatch, one K6 MEC per fused level-2 dispatch, no K4),
     traced and CPU runs, byte-equal. Returns (launches of the first run,
     the second run's recorded dispatches, its recorded climbs, {run:
-    record})."""
+    record}, its sweep's (blocks, Options))."""
     from floria_tpu_torch import timing
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.sim.simulate import SimConfig, simulate
@@ -1367,7 +1397,9 @@ def e2e_ecoli2(tmp):
     assert_same_tree(first, cpu, "ecoli2 card run against the CPU run")
     emit({"phase": "e2e", "config": "ecoli2", "byte_equal":
           ["second", "traced", "cpu"], "files": len(_tree(first))})
-    return launches, recorder, climbs.climbs, recs
+    if len(sweeps.sweeps) != 1:
+        raise AssertionError(f"ecoli2: {len(sweeps.sweeps)} sweeps")
+    return launches, recorder, climbs.climbs, recs, sweeps.sweeps[0][:2]
 
 
 def check_dispatches(dev, recorder, climbs, sweep_later):
@@ -2010,6 +2042,311 @@ def _assert_sweeps_equal(label, a, b):
                 raise AssertionError(f"{label}: {what} of {k} differs")
 
 
+def instance_digest(*arrays) -> str:
+    """The first 16 hex digits of the sha256 of arrays' dtypes, shapes
+    and bytes."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"|{a.dtype.str}{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def instance_digests(beam, refined, stats):
+    """{"beam": {"key|ploidy": digest of the beam's assignment},
+    "refine": {"key|ploidy": digest of the refined assignment and its
+    (bases, errors)}} of phase_instances' and refine_instances' results
+    (either package's)."""
+    return {"beam": {f"{k}|{p}": instance_digest(a)
+                     for (k, p), a in beam.items()},
+            "refine": {f"{k}|{p}": instance_digest(
+                a, np.asarray(stats[(k, p)], np.float64))
+                for (k, p), a in refined.items()}}
+
+
+def blocks_sha256(blocks) -> str:
+    """The sha256 of [(key, BlockTensor)] blocks (either package's): each
+    key and shape fields, alleles, quals and fragment ids, in order."""
+    h = hashlib.sha256()
+    for key, bt in blocks:
+        h.update(f"{key}|{int(bt.lo)}|{int(bt.num_sites)}|"
+                 f"{int(bt.num_reads)}|{tuple(map(int, bt.snp_range))}|"
+                 .encode())
+        for a in (bt.alleles, bt.quals, bt.frag_ids):
+            a = np.ascontiguousarray(a)
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def bench_blocks(G, R, S):
+    """bench.py's make_workload(G, R, S) as (key, BlockTensor) blocks
+    (workload_blocks) and the Options of its dispatch: epsilon 0.02,
+    beam width 10, ploidies up to 5."""
+    from floria_tpu_torch.options import Options
+
+    return workload_blocks(G, R, S), Options(epsilon=0.02,
+                                             max_number_solns=10,
+                                             max_ploidy=5)
+
+
+def bench_kernel_rps(dev, args, iters=3):
+    """bench.py's `measure_kernel` on the card: every block of `args`
+    (make_workload's) at the ploidies BENCH_PLOIDIES in one mixed K1
+    dispatch (beam width 10, two alleles) on inputs already on the card,
+    one warm call, then `iters` calls, each ending in a pull of the
+    scores. Returns (G * R * iters / elapsed, seconds per call)."""
+    from floria_tpu_torch.kernels import beam as tb
+
+    alleles, weights, num_reads, eps = args
+    G, R, _S = alleles.shape
+    k = len(BENCH_PLOIDIES)
+
+    def put(x):
+        return torch.from_numpy(np.concatenate([x] * k)).to(dev)
+
+    al, wt, nr, ep = put(alleles), put(weights), put(num_reads), put(eps)
+    nparts = torch.from_numpy(np.repeat(np.array(BENCH_PLOIDIES, np.int32),
+                                        G)).to(dev)
+
+    def sweep():
+        out = tb.beam_search_batch_mixed(al, wt, nr, ep, nparts,
+                                         max(BENCH_PLOIDIES), 10,
+                                         max_alleles=2, device=dev)
+        out.scores.cpu()
+
+    sweep()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        sweep()
+    elapsed = time.perf_counter() - t0
+    return G * R * iters / elapsed, elapsed / iters
+
+
+def baseline_rps():
+    """bench.py's CPU denominators through the port's native bridge, on
+    this host: `measure_cpu_baseline` (the first 4 blocks of
+    make_workload(32, 256, 256), ploidies 2..5, beam width 10, faithful
+    and dense) and bench.py:376-381 (the first block of
+    make_workload(8, 320, 2048), faithful). Reads per second each."""
+    from floria_tpu_torch import native
+
+    out = {}
+    alleles, weights, _nr, eps = make_workload(*BENCH_SHAPES[0])
+    for name, faithful in (("faithful", True), ("dense", False)):
+        t0 = time.perf_counter()
+        n = native.baseline_sweep(alleles[:4], weights[:4],
+                                  list(BENCH_PLOIDIES), 10, float(eps[0]),
+                                  faithful=faithful)
+        out[f"baseline_{name}_reads_per_s"] = n / (time.perf_counter() - t0)
+    alleles, weights, _nr, eps = make_workload(*BENCH_SHAPES[1])
+    t0 = time.perf_counter()
+    n = native.baseline_sweep(alleles[:1], weights[:1], list(BENCH_PLOIDIES),
+                              10, float(eps[0]), faithful=True)
+    out["baseline_realshape_faithful_reads_per_s"] = n / (
+        time.perf_counter() - t0)
+    return out
+
+
+def hold_plain_on_card(label, beams, climbs):
+    """Every K1 dispatch (DispatchRecorder.beam) and K6 climb
+    (ClimbRecorder) an instance path made, against its plain version on
+    the same card and inputs, bitwise. Returns the max abs differences
+    (K1, climb): 0.0, or it raises."""
+    from floria_tpu_torch.kernels import beam as tb
+    from floria_tpu_torch.kernels import upem_batch as tu
+
+    k1_err = climb_err = 0.0
+    for i, ((al, wt, nr, ep, npt), P, W, kw, (got, asg)) in enumerate(beams):
+        S = al.shape[-1]
+        window = kw.get("window", 0)
+        window = S if window <= 0 or window >= S else window
+        A, dedup = kw["max_alleles"], kw.get("dedup", True)
+        prep = tb._prepare(al, wt, ep, A, P, window, dedup)
+        ref = tb.beam_scan_plain(al, wt, nr, *prep[:2], npt, *prep[2:], P=P,
+                                 W=W, A=A, window=window, dedup=dedup)
+        k1_err = max(k1_err, _assert_beam_equal(
+            f"{label} dispatch {i}", ref, tb.traceback_batch(ref), got, asg))
+    for i, ((P, (al, wt, nr, ep, a0), A), got) in enumerate(
+            zip(climbs.climbs, climbs.outputs)):
+        want = tu.upem_climb_plain(al, wt, a0, nr, ep, P, A)
+        errs = [max_abs_diff(a, b) for a, b in zip(want, got)]
+        if max(errs) != 0.0 or not all(torch.equal(a, b)
+                                       for a, b in zip(want, got)):
+            raise AssertionError(f"climb kernel, {label} climb {i} (P={P}) "
+                                 f"differs from upem_climb_plain: {errs}")
+        climb_err = max(climb_err, *errs)
+    return k1_err, climb_err
+
+
+def hold_instance_golden(case, blocks, got):
+    """One case's instance digests (`instance_digests` of the card's
+    results) held to GOLDEN_INSTANCES, written by the JAX package's
+    phase_instances and refine_instances on the CPU; the blocks too.
+    Returns (compared, differing); raises if anything differs."""
+    with open(GOLDEN_INSTANCES) as fh:
+        want = json.load(fh)["cases"][case]
+    if blocks_sha256(blocks) != want["blocks_sha256"]:
+        raise AssertionError(f"instances {case}: the blocks differ from "
+                             "the golden record's")
+    compared = differing = 0
+    first = []
+    for what in ("beam", "refine"):
+        if sorted(got[what]) != sorted(want[what]):
+            raise AssertionError(f"instances {case}: the {what} instances "
+                                 "differ from the golden record's")
+        bad = [k for k in sorted(want[what]) if got[what][k] != want[what][k]]
+        compared += len(want[what])
+        differing += len(bad)
+        first += [(what, k) for k in bad[:5]]
+    if differing:
+        raise AssertionError(f"instances {case}: {differing} of {compared} "
+                             f"instance digests differ from the JAX "
+                             f"package's: {first[:10]}")
+    return compared, differing
+
+
+def instance_api_checks(dev, blocks, options, beam, refined, stats):
+    """On one shape bucket's blocks: upem_eval_batch at every refined
+    ploidy (K6's evaluation kernel, modes init and mec) against
+    upem_eval_plain on the card, bitwise, with the unit MEC of each
+    refined assignment equal to refine_instances' stats; and
+    optimize_many over the ploidies > 1 from the beam's assignments,
+    equal to refine_instances. Returns (ploidies evaluated, groups
+    climbed)."""
+    from floria_tpu_torch.kernels import upem_batch as tu
+    from floria_tpu_torch.phase import local
+
+    cache = local.BlockDeviceCache(blocks, device=dev)
+    (key,) = cache.dev
+    A = cache.amax[key]
+    al, wt = cache.gather(key, [j for j, _bt in blocks])
+    nr = np.array([bt.num_reads for _j, bt in blocks], np.int32)
+    eps = np.full(len(blocks), options.epsilon, np.float32)
+    ep = torch.from_numpy(eps).to(dev)
+    ploidies = sorted({p for _j, p in refined})
+    groups = []
+    for P in ploidies:
+        best = np.zeros((len(blocks), key[0]), np.int32)
+        start = np.zeros_like(best)
+        for g, (j, bt) in enumerate(blocks):
+            best[g, :bt.num_reads] = refined[(j, P)]
+            if P > 1:
+                start[g, :bt.num_reads] = beam[(j, P)]
+        diff, score, mec = tu.upem_eval_batch(al, wt, best, eps, P, A,
+                                              device=dev)
+        b = torch.from_numpy(best).to(dev)
+        pd, ps, _act = tu.upem_eval_plain("init", al, wt, b, ep, P, A)
+        pm = tu.upem_eval_plain("mec", al, wt, b, ep, P, A)
+        for name, x, y in (("diff", diff, pd * tu.INV_WEIGHT_SCALE),
+                           ("score", score, ps * tu.INV_WEIGHT_SCALE),
+                           ("mec", mec, pm)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"upem_eval_batch P={P}: {name} "
+                                     "differs from upem_eval_plain")
+        want = np.array([stats[(j, P)] for j, _bt in blocks], np.float64)
+        if not np.array_equal(mec.cpu().numpy(), want):
+            raise AssertionError(f"upem_eval_batch P={P}: the unit MEC of "
+                                 "the refined assignments differs from "
+                                 "refine_instances'")
+        if P > 1:
+            groups.append((best, tu._GroupState(al, wt, start, nr, eps, P,
+                                                device=dev)))
+    tu.optimize_many([gs for _b, gs in groups])
+    for best, gs in groups:
+        if not np.array_equal(gs.best, best):
+            raise AssertionError(f"optimize_many P={gs.ploidy} differs "
+                                 "from refine_instances")
+    return len(ploidies), len(groups)
+
+
+def instances_phase(dev, ecoli2):
+    """Phase instances: the instance API on the card (phase_instances at
+    ploidies 2..5, mixed in one K1 dispatch per shape bucket and
+    dispatch cap; refine_instances at 1..5, one K6 climb per (ploidy,
+    bucket) and cap, ploidy 1 included), on bench.py's two kernel shapes
+    and on every block of ecoli2 (`ecoli2`: its sweep's (blocks,
+    Options)). Per case the launches are counted from 0 (K1, K6's climb
+    kernel, on the bench shapes also K6's evaluation kernel through
+    upem_eval_batch and the climbs of optimize_many; never K4), every K1
+    dispatch and climb is held to its plain version on the card, and
+    every (block, ploidy) to the JAX package's digests
+    (GOLDEN_INSTANCES). Then bench.py's kernel metric at both shapes
+    and its CPU denominators through the port. Returns the summary
+    record."""
+    from floria_tpu_torch.kernels import _build
+    from floria_tpu_torch.phase import local
+
+    t_phase = time.perf_counter()
+    cases = [(f"bench {G}x{R}x{S}", *bench_blocks(G, R, S))
+             for G, R, S in BENCH_SHAPES]
+    cases.append(("ecoli2", *ecoli2))
+    summary = {"phase": "instances_summary", "cases": {}}
+    k1_err = climb_err = 0.0
+    for case, blocks, opts in cases:
+        _build.LAUNCHES.clear()
+        with DispatchRecorder() as beams, ClimbRecorder() as climbs:
+            t0 = time.perf_counter()
+            beam = local.phase_instances(blocks, opts, BENCH_PLOIDIES,
+                                         device=dev)
+            refined, stats = local.refine_instances(
+                blocks, beam, opts, ploidies=range(1, opts.max_ploidy + 1),
+                device=dev)
+            wall = time.perf_counter() - t0
+            n_beam, n_climb = len(beams.beam), len(climbs.climbs)
+            api = None
+            if case.startswith("bench"):
+                api = instance_api_checks(dev, blocks, opts, beam, refined,
+                                          stats)
+        launches = dict(_build.LAUNCHES)
+        want = {"beam_scan": n_beam, "upem_moves": 0,
+                "upem_climb": n_climb + (0 if api is None else api[1]),
+                "upem_eval": 0 if api is None else 2 * api[0]}
+        if dev.type != "cuda":
+            # The plain versions, which count no launch.
+            want = dict.fromkeys(want, 0)
+        got = {k: launches.get(k, 0) for k in want}
+        if got != want or not n_beam or not n_climb:
+            raise AssertionError(f"instances {case}: launches {launches}, "
+                                 f"expected {want} ({n_beam} beam "
+                                 f"dispatches, {n_climb} climbs)")
+        climb_ploidies = sorted({P for P, _a, _m in climbs.climbs[:n_climb]})
+        if climb_ploidies != list(range(1, opts.max_ploidy + 1)):
+            raise AssertionError(f"instances {case}: climbs at ploidies "
+                                 f"{climb_ploidies}")
+        t1 = time.perf_counter()
+        errs = hold_plain_on_card(case, beams.beam, climbs)
+        plain_s = time.perf_counter() - t1
+        k1_err, climb_err = max(k1_err, errs[0]), max(climb_err, errs[1])
+        compared, differing = hold_instance_golden(
+            case, blocks, instance_digests(beam, refined, stats))
+        rec = {"phase": "instances", "case": case, "blocks": len(blocks),
+               "beam_instances": len(beam), "climb_instances": len(refined),
+               "beam_dispatches": [list(d[0][0].shape) for d in beams.beam],
+               "num_parts": sorted({int(p) for d in beams.beam
+                                    for p in d[0][4].tolist()}),
+               "climb_ploidies": climb_ploidies, "launches": launches,
+               "wall_s": wall, "plain_on_card_s": plain_s,
+               "plain_bitwise_equal": ["beam records", "assignments",
+                                       "climb best, mec, diff"],
+               "golden_compared": compared, "golden_differing": differing}
+        emit(rec)
+        summary["cases"][case] = {k: rec[k] for k in (
+            "beam_instances", "climb_instances", "launches", "wall_s",
+            "golden_compared", "golden_differing")}
+    for G, R, S in BENCH_SHAPES:
+        rps, call_s = bench_kernel_rps(dev, make_workload(G, R, S))
+        summary["cases"][f"bench {G}x{R}x{S}"].update(
+            kernel_reads_per_s=rps, kernel_call_ms=call_s * 1e3)
+    summary.update(baseline_rps())
+    summary["nvidia_smi"] = CARD
+    summary["max_abs_err"] = {"beam_scan": k1_err, "upem_climb": climb_err}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    emit(summary)
+    return summary
+
+
 # One rank of the CLI in its own process: the user's entry point, then
 # its launch counts, the seconds of cli.main and its stages, and any jax
 # or `floria_tpu` module it loaded; its sweeps' block digests go to a
@@ -2329,11 +2666,13 @@ def main(argv=None) -> None:
     del ups
 
     with tempfile.TemporaryDirectory(prefix="floria_smoke_") as tmp:
-        launches, recorder, climbs, ecoli2_runs = e2e_ecoli2(tmp)
+        launches, recorder, climbs, ecoli2_runs, ecoli2 = e2e_ecoli2(tmp)
         per_dispatch, k4_later = check_dispatches(dev, recorder, climbs,
                                                   sweep_later)
         k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
         del climbs, sweep_later
+        instances = instances_phase(dev, ecoli2)
+        del ecoli2
         parity_long3(tmp)
         north_star = north_star_phase(tmp)
         _eval, climbs, config4_runs = config4_phase(tmp)
@@ -2356,7 +2695,9 @@ def main(argv=None) -> None:
         climbs_ab[d["climb_ab"]["case"]] = d["climb_ab"]
     for P, (_res, _climb, ab) in config4_k6.items():
         climbs_ab[ab["case"]] = ab
-    k1_err = max(k1_err, sharded["max_abs_err"])
+    k1_err = max(k1_err, sharded["max_abs_err"],
+                 instances["max_abs_err"]["beam_scan"])
+    climb_err = max(climb_err, instances["max_abs_err"]["upem_climb"])
     k1_s, k1_plain_s, k1_bnd = per_dispatch[0]["k1"][1:]
     k4_s, k4_plain_s, k4_bnd = per_dispatch[0]["k4"][1:]
     k6_s, k6_plain_s, k6_bnd = per_dispatch[0]["climb"][1:4]

@@ -55,6 +55,31 @@ def to_host(x: torch.Tensor) -> torch.Tensor:
     return out.copy_(x, non_blocking=True)
 
 
+def pull(tensors) -> list:
+    """Host numpy copies of `tensors`, in order. Every copy from a card
+    is enqueued without a wait (`to_host`); then the host waits once per
+    card, on an event recorded after the copies."""
+    hosts = [to_host(x) for x in tensors]
+    events = []
+    for dev in dict.fromkeys(x.device for x in tensors
+                             if x.device.type == "cuda"):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append(ev)
+    for ev in events:
+        ev.synchronize()
+    return [x.numpy() for x in hosts]
+
+
+def same_card(dev: torch.device) -> torch.device:
+    """`dev` (a resolved device) with its card's index filled in: "cuda"
+    names the current card, so "cuda" and "cuda:0" compare equal where
+    card 0 is current."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for `device` ("cuda", "cuda:0", "cpu" or a
     torch.device). Raises when CUDA is asked for and unavailable."""

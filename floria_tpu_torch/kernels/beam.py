@@ -25,8 +25,10 @@ Two implementations, one semantics:
   inside the kernel and the traceback in its epilogue. It touches only
   each step's frontier columns (`frontier_bounds`) and computes the dedup
   fingerprints from its counts, so it needs no suffix-hash rows.
-`beam_search_batch_mixed` / `beam_search_traceback` pick by the tensors'
-device: CUDA tensors go to the kernel, CPU tensors to the plain version.
+`beam_search_batch_mixed` / `beam_search_traceback` (and the fixed-ploidy
+`beam_search_batch`) pick by the tensors' device: CUDA tensors go to the
+kernel, CPU tensors to the plain version. `traceback` walks one
+instance's records on the host.
 """
 
 from __future__ import annotations
@@ -530,3 +532,33 @@ def beam_search_batch_mixed(alleles, weights, num_reads, epsilon,
     return beam_search_traceback(
         alleles, weights, num_reads, epsilon, num_parts, max_ploidy,
         beam_width, max_alleles, window, dedup, device=device)[0]
+
+
+def beam_search_batch(alleles, weights, num_reads, epsilon, ploidy: int,
+                      beam_width: int,
+                      max_alleles: int = constants.MAX_ALLELES,
+                      window: int = 0, dedup: bool = True, *,
+                      device) -> BeamResult:
+    """The reference's beam_search_batch: every instance phased at the
+    one `ploidy`, i.e. `beam_search_batch_mixed` with num_parts = ploidy
+    and max_ploidy = ploidy (K1 on a card). A window (0 or >= S: full
+    width) must hold every read: window >= the longest read span + 128."""
+    num_parts = np.full(len(alleles), ploidy, np.int32)
+    return beam_search_batch_mixed(alleles, weights, num_reads, epsilon,
+                                   num_parts, ploidy, beam_width,
+                                   max_alleles, window, dedup,
+                                   device=device)
+
+
+def traceback(result_g, num_reads: int, ploidy: int) -> np.ndarray:
+    """The best beam's read -> part assignment of one instance (the
+    reference's parent-chain walk, global_clustering.rs:149-178):
+    `traceback_batch` on a batch of one. result_g: one instance's six
+    records (warm_parents [T1, B1], warm_parts, main_parents [T2, W],
+    main_parts, scores, live), tensors or arrays. Returns [num_reads]
+    int32 on the host."""
+    one = BeamResult(*((a if isinstance(a, torch.Tensor)
+                        else torch.as_tensor(np.asarray(a)))[None]
+                       for a in result_g))
+    return traceback_batch(one)[0, :num_reads].cpu().numpy().astype(
+        np.int32)

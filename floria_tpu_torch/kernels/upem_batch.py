@@ -25,6 +25,11 @@ K4, the move function alone (csrc/upem_moves.cu, `apply_moves_cuda`), stay
 launchable: the sweep launches K6 mec for the ploidy-1 statistics, and the
 two compose the climb as launches (`_climb` on CUDA tensors) for the card
 tests.
+
+The reference's batch API sits on these: `upem_eval_batch` (K6's
+evaluation kernel, modes init and mec) and the lockstep UPEM
+`optimize_batch` / `optimize_many`, each group one climb kernel launch,
+every group enqueued before one pull.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 
 from .. import constants
 
-from ..device import check_no_tf32, resolve_device
+from ..device import check_no_tf32, pull, resolve_device
 from . import _build
 
 EVAL_MODES = {"init": 0, "step": 1, "mec": 2}
@@ -581,3 +586,86 @@ def _climb(alleles, weights, best, num_reads, epsilon, ploidy: int,
     mec = evaluate("mec", alleles, weights, best, epsilon, ploidy,
                    max_alleles)
     return best, mec, diff
+
+
+def upem_eval_batch(alleles, weights, assign, epsilon, ploidy: int,
+                    max_alleles: int = constants.MAX_ALLELES, *, device):
+    """The reference's upem_eval_batch: evaluate a batch of partitions.
+    alleles [G, R, S] int8, weights [G, R, S] f32, assign [G, R] (-1: a
+    padding row), epsilon [G] f32, moved to `device`. Returns (diff
+    [G, R, P] f64 epsilon-distances and score [G] f64 = -(phred
+    MEC-epsilon errors), both in weight units, and the unit-weight
+    mec_noph [G, 2] f64 (bases, errors)) on `device`: on a card K6's
+    evaluation kernel in modes init and mec, with no host wait."""
+    check_no_tf32()
+    dev = resolve_device(device)
+
+    def t(x, dt):
+        return torch.as_tensor(x).to(dev, dt).contiguous()
+
+    args = (t(alleles, torch.int8), t(weights, torch.float32),
+            t(assign, torch.int32), t(epsilon, torch.float32))
+    diff, score, _active = upem_eval("init", *args, ploidy, max_alleles)
+    mec = upem_eval("mec", *args, ploidy, max_alleles)
+    return diff * INV_WEIGHT_SCALE, score * INV_WEIGHT_SCALE, mec
+
+
+class _GroupState:
+    """One batch of a shape group for `optimize_many`: its tensors on
+    `device`, the assignments `best` [G, R] and, once pulled, their unit
+    MEC `best_mec` [G, 2] and distances `diff` [G, R, P] (weight units),
+    numpy arrays."""
+
+    def __init__(self, alleles, weights, assigns, num_reads, epsilon,
+                 ploidy: int, *, device):
+        self.device = resolve_device(device)
+        self.ploidy = ploidy
+
+        def t(x, dt):
+            return torch.as_tensor(x).to(self.device, dt).contiguous()
+
+        self.alleles = t(alleles, torch.int8)
+        self.weights = t(weights, torch.float32)
+        self.num_reads = t(num_reads, torch.int32)
+        self.epsilon = t(epsilon, torch.float32)
+        self.best = np.array(assigns, copy=True)
+        self.best_mec = None
+        self.diff = None
+        self.pending = None
+
+    def launch(self, assigns):
+        """Enqueue the whole climb from `assigns` (one climb-kernel launch
+        on a card, no host wait; the plain climb on the CPU)."""
+        self.pending = upem_optimize_device(
+            self.alleles, self.weights, assigns, self.num_reads, self.epsilon,
+            self.ploidy, device=self.device)
+
+
+def optimize_many(groups) -> None:
+    """The lockstep UPEM climb of many groups (`_GroupState`): every
+    group's climb is enqueued before any result is pulled, then each
+    group's results are copied to the host and the host waits once per
+    device. Sets each group's .best (in its own dtype), .best_mec and
+    .diff."""
+    check_no_tf32()
+    for gs in groups:
+        gs.launch(gs.best)
+    hosts = iter(pull([x for gs in groups for x in gs.pending]))
+    for gs in groups:
+        best, gs.best_mec, gs.diff = next(hosts), next(hosts), next(hosts)
+        gs.best[...] = best
+        gs.pending = None
+
+
+def optimize_batch(alleles, weights, assigns, num_reads, epsilon,
+                   ploidy: int, *, device):
+    """Lockstep UPEM over a batch (optimize_clustering semantics,
+    local_clustering.rs:71-130): the reference's optimize_batch, one
+    `_GroupState` through `optimize_many`. Padding rows carry assign -1
+    (or 0 with zero weights, which adds nothing). Returns (refined
+    assigns [G, R] in assigns' dtype, mec_noph [G, 2] f64 of the refined
+    partitions), numpy arrays."""
+    gs = _GroupState(alleles, weights, assigns, num_reads, epsilon, ploidy,
+                     device=device)
+    optimize_many([gs])
+    return gs.best, gs.best_mec

@@ -103,6 +103,13 @@ def _bind(lib) -> None:
         np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
         np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32]
+    lib.floria_pack_windows.restype = None
+    lib.floria_pack_windows.argtypes = [
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_int64, ctypes.c_int32,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_int32]
     lib.floria_realign_jobs.restype = ctypes.c_int64
     lib.floria_realign_jobs.argtypes = [
         np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
@@ -205,6 +212,17 @@ def _bind(lib) -> None:
         np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
         ctypes.c_int64, ctypes.c_int64,
         np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")]
+    lib.floria_baseline_sweep.restype = ctypes.c_int64
+    lib.floria_baseline_sweep.argtypes = [
+        np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        # epsilon crosses as a double: an f64 epsilon narrowed to f32
+        # shifts every diff and p-value enough to flip the beam's pruning
+        # at deep coverage.
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
 
 
 def bgzf_member_index(data):
@@ -416,6 +434,47 @@ def realign_exact(q: np.ndarray, si: np.ndarray, nal: np.ndarray,
         np.ascontiguousarray(var_tab), n, A, w2, out,
         threads.num_threads())
     return out
+
+
+def pack_windows(seq_buf: np.ndarray, qpos: np.ndarray,
+                 flank: int) -> np.ndarray:
+    """4-bit encode and pack [n, 2*flank] query windows gathered at
+    qpos[i]-flank from the payload buffer, two codes per byte: [n, flank]
+    uint8."""
+    lib = get_lib()
+    qpos = np.ascontiguousarray(qpos, dtype=np.int64)
+    n = len(qpos)
+    out = np.empty((n, flank), np.uint8)
+    lib.floria_pack_windows(np.ascontiguousarray(seq_buf, dtype=np.uint8),
+                            qpos, n, flank, out.reshape(-1),
+                            threads.num_threads())
+    return out
+
+
+def baseline_sweep(alleles: np.ndarray, weights: np.ndarray,
+                   ploidies, beam_width: int, epsilon: float,
+                   max_alleles: int = 2, do_upem: bool = False,
+                   faithful: bool = False, want_assign: bool = False):
+    """The single-core C++ reference-semantics baseline
+    (native/baseline.cpp) over [G, R, S] blocks, each block swept over
+    `ploidies` in turn. faithful=True runs the hashmap variant that
+    mirrors the reference's data structures, else the dense rewrite.
+    Returns the last ploidy's assignments [G, R] int32 when want_assign,
+    else the number of reads processed (G * R)."""
+    lib = get_lib()
+    alleles = np.ascontiguousarray(alleles, dtype=np.int8)
+    weights = np.ascontiguousarray(weights, dtype=np.float32)
+    G, R, S = alleles.shape
+    pl = np.ascontiguousarray(ploidies, dtype=np.int32)
+    out = np.zeros((G, R), dtype=np.int32) if want_assign else None
+    out_ptr = out.ctypes.data_as(ctypes.c_void_p) if want_assign else None
+    n = lib.floria_baseline_sweep(
+        alleles.reshape(-1), weights.reshape(-1), G, R, S, pl, len(pl),
+        beam_width, epsilon, max_alleles, int(do_upem), int(faithful),
+        out_ptr)
+    if want_assign:
+        return out
+    return int(n)
 
 
 def realign_jobs(seq_buf: np.ndarray, rec: np.ndarray, qpos: np.ndarray,

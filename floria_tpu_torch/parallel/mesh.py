@@ -60,6 +60,11 @@ def shard_bounds(G: int, n: int) -> List[Tuple[int, int]]:
     return [(min(k * per, G), min((k + 1) * per, G)) for k in range(n)]
 
 
+def pad_to_multiple(n: int, m: int) -> int:
+    """The least multiple of m that is >= n."""
+    return ((n + m - 1) // m) * m
+
+
 def run_on_shards(fn, items: Sequence) -> list:
     """[fn(item) for item in items], one host thread per item, results in
     item order; an exception of any item is raised here."""

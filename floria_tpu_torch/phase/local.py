@@ -14,6 +14,16 @@ in its pull. The stopping rules replay on the host, level by level, so
 the chosen ploidies and partitions equal the reference's sequential
 early exit (graph_processing.rs:198-252).
 
+The reference's instance API is here too: `phase_instances` (the beam
+of every (block, ploidy) instance, mixed ploidies in one K1 dispatch per
+shape bucket), `refine_instances` (the climb and unit MEC of every
+(block, ploidy), ploidy 1 included) and `phase_contig_blocks` (one
+contig). Like the sweep they split each bucket into dispatches of the
+dispatch cap, never pad the batch, enqueue every dispatch and pull once;
+`phase_instances` also splits each dispatch over a block mesh, as the
+sweep does, and `refine_instances` runs on one device, as the
+reference's does.
+
 The pure helpers below are copies of the reference's (which cannot be
 imported: its module pulls in jax).
 """
@@ -30,7 +40,8 @@ import numpy as np
 import torch
 
 from .. import constants, state, timing
-from ..device import check_no_tf32, resolve_device, to_host, upload
+from ..device import (check_no_tf32, pull, resolve_device, same_card,
+                      upload)
 from ..kernels import beam as beam_kernel
 from ..kernels.blocktensor import BlockTensor, pack_block, round_up
 from ..kernels.upem_batch import upem_eval, upem_optimize_device
@@ -146,6 +157,17 @@ def _bucket_sites(s: int) -> int:
     return round_up(s, 512)
 
 
+def phase_contig_blocks(frags, snp_to_genome_pos: np.ndarray,
+                        options: Options, debug_dir: Optional[str] = None,
+                        *, device) -> List[LocalBlockResult]:
+    """Phase every SNP block of one contig on `device`: one result per
+    non-empty block, in block order (empty blocks are dropped, like the
+    None return at graph_processing.rs:129-131)."""
+    return phase_contigs_blocks(
+        [("__single__", frags, snp_to_genome_pos, debug_dir)], options,
+        device=device)["__single__"]
+
+
 def phase_contigs_blocks(per_contig, options: Options, *, device
                          ) -> Dict[object, List[LocalBlockResult]]:
     """Phase the SNP blocks of many contigs in shared device batches.
@@ -211,10 +233,7 @@ def adaptive_sweep(blocks, options: Options,
     {key: expected_errors})."""
     sweep_t = time.time()
     mesh = make_block_mesh(options.num_devices, device=device)
-    caches = {} if cache is None else {cache.device: cache}
-    for dev in mesh:
-        if dev not in caches:
-            caches[dev] = BlockDeviceCache(blocks, device=dev)
+    caches = _mesh_caches(blocks, cache, mesh)
     max_p = options.max_ploidy
     mec_vec = {key: np.zeros(max_p) for key, _bt in blocks}
     exp_vec = {key: np.zeros(max_p) for key, _bt in blocks}
@@ -229,7 +248,7 @@ def adaptive_sweep(blocks, options: Options,
         if not active:
             break
         lvl_t = time.time()
-        pending = _sweep_launch(active, options, mesh, caches, [entry])
+        pending = _sweep_launch(active, options, caches, [entry])
         levels = entry if isinstance(entry, tuple) else (entry,)
         launch_s = time.time() - lvl_t
         refined_p, stats_p = _sweep_pull(pending)
@@ -375,9 +394,8 @@ def _dispatch_window(chunk, s_pad: int) -> int:
     return window
 
 
-def _sweep_launch(blocks, options: Options, mesh: List[torch.device],
-                  caches: Dict[torch.device, BlockDeviceCache],
-                  ploidies) -> list:
+def _sweep_launch(blocks, options: Options,
+                  caches: List[BlockDeviceCache], ploidies) -> list:
     """Enqueue one wave of chained beam -> UPEM dispatches for every
     (block, ploidy in ploidies) instance, per shape bucket, in chunks of
     the dispatch cap. On a card nothing here waits for it: the results
@@ -385,55 +403,62 @@ def _sweep_launch(blocks, options: Options, mesh: List[torch.device],
     enqueueing only. Each dispatch's windows are checked on the host,
     from its blocks, before anything is enqueued.
 
-    Over a mesh of more than one shard, each dispatch's batch splits into
-    len(mesh) contiguous shards (parallel/mesh.py shard_bounds) and each
-    shard's whole chain runs on its device, all shards' chains on their
-    own host threads at once. The reference pulls the sharded beam to the
-    host and runs UPEM on the default device; instances are independent,
-    so the outputs are the same (tests/test_torch_parallel.py)."""
+    Over a mesh of more than one shard (`caches`, one per shard), each
+    dispatch splits as `_launch_sharded` splits it, and each shard's
+    whole chain runs on its device. The reference pulls the sharded beam
+    to the host and runs UPEM on the default device; instances are
+    independent, so the outputs are the same
+    (tests/test_torch_parallel.py)."""
     check_no_tf32()
     groups: Dict[Tuple[int, int], List[Tuple[object, BlockTensor]]] = {}
     for j, bt in blocks:
         key = (_bucket_reads(bt.num_reads), _bucket_sites(bt.num_sites))
         groups.setdefault(key, []).append((j, bt))
-    cap_cells = _sweep_cap_cells(options)
-    if len(mesh) > 1:
+    if len(caches) > 1:
         # The fused (1, 2) wave is single-device only, as in the
         # reference: over a mesh levels 1 and 2 are separate dispatches
         # of one wave.
         ploidies = [q for p in ploidies
                     for q in (p if isinstance(p, tuple) else (p,))]
-    jobs: List[list] = [[] for _ in mesh]
-    for ploidy in ploidies:
-        for key, members in groups.items():
-            g_cap = max(1, cap_cells // (key[0] * key[1]))
-            for lo in range(0, len(members), g_cap):
-                chunk = members[lo:lo + g_cap]
-                window = _dispatch_window(chunk, key[1])
-                for k, (a, b) in enumerate(shard_bounds(len(chunk),
-                                                        len(mesh))):
-                    if b > a:
-                        jobs[k].append((ploidy, key, chunk[a:b], window))
+    dispatches = [(chunk, ploidy, key, _dispatch_window(chunk, key[1]))
+                  for ploidy in ploidies
+                  for key, members in groups.items()
+                  for chunk in _chunks(members, key, options)]
 
-    def run_shard(k):
-        cache = caches[mesh[k]]
-        pending = []
-        for ploidy, key, members, window in jobs[k]:
-            nreads = np.array([bt.num_reads for _j, bt in members],
-                              dtype=np.int32)
-            eps = np.full(len(members), options.epsilon, dtype=np.float32)
-            fused = ploidy == (1, 2)
-            best, mec = _sweep_chain(
-                cache, key, [j for j, _bt in members], nreads, eps,
-                2 if fused else ploidy, options.max_number_solns, window,
-                cache.amax[key], fused12=fused)
-            pending.append((members, ploidy, best, mec))
-        return pending
+    def launch(cache, members, ploidy, key, window):
+        nreads = np.array([bt.num_reads for _j, bt in members],
+                          dtype=np.int32)
+        eps = np.full(len(members), options.epsilon, dtype=np.float32)
+        fused = ploidy == (1, 2)
+        best, mec = _sweep_chain(
+            cache, key, [j for j, _bt in members], nreads, eps,
+            2 if fused else ploidy, options.max_number_solns, window,
+            cache.amax[key], fused12=fused)
+        return members, ploidy, best, mec
 
     launch_t = time.time()
-    shards = run_on_shards(run_shard,
-                           [k for k in range(len(mesh)) if jobs[k]])
+    pending = _launch_sharded(caches, dispatches, launch)
     timing.add("phase.launch", time.time() - launch_t)
+    return pending
+
+
+def _launch_sharded(caches: List[BlockDeviceCache], dispatches, launch
+                    ) -> list:
+    """[launch(cache, members, *rest)] for every dispatch (members,
+    *rest), over the mesh of `caches` (one per shard): each dispatch's
+    members split into len(caches) contiguous shards (parallel/mesh.py
+    shard_bounds, empty shards skipped), and each shard's dispatches run
+    in order on its cache's device, on its own host thread, all shards
+    at once. Results in shard order, each shard's in dispatch order."""
+    jobs: List[list] = [[] for _ in caches]
+    for members, *rest in dispatches:
+        for k, (a, b) in enumerate(shard_bounds(len(members),
+                                                len(caches))):
+            if b > a:
+                jobs[k].append((members[a:b], *rest))
+    shards = run_on_shards(
+        lambda k: [launch(caches[k], *job) for job in jobs[k]],
+        [k for k in range(len(caches)) if jobs[k]])
     return [p for pending in shards for p in pending]
 
 
@@ -442,32 +467,174 @@ def _sweep_pull(pending: list):
     result is copied into pinned host memory without a wait, then the
     host waits once per device, on an event recorded after the copies."""
     pull_t = time.time()
-    hosts, events = [], {}
-    for _members, _ploidy, best, mec in pending:
-        mecs = mec if isinstance(mec, tuple) else (mec,)
-        hosts.append([to_host(x) for x in (best, *mecs)])
-        if best.device.type == "cuda":
-            events[best.device] = None
-    for dev in events:
-        events[dev] = torch.cuda.Event()
-        events[dev].record(torch.cuda.current_stream(dev))
-    for ev in events.values():
-        ev.synchronize()
+    flat = [x for _members, _ploidy, best, mec in pending
+            for x in (best, *(mec if isinstance(mec, tuple) else (mec,)))]
+    hosts = iter(pull(flat))
     refined: Dict[Tuple[object, int], np.ndarray] = {}
     stats: Dict[Tuple[object, int], Tuple[float, float]] = {}
-    for (members, ploidy, _best, _mec), host in zip(pending, hosts):
-        best, *mecs = (x.numpy() for x in host)
+    for members, ploidy, _best, _mec in pending:
+        best = next(hosts)
         if ploidy == (1, 2):
-            mec1, mec2 = mecs
+            mec1, mec2 = next(hosts), next(hosts)
             for g, (j, bt) in enumerate(members):
                 refined[(j, 1)] = np.zeros(bt.num_reads, np.int32)
                 stats[(j, 1)] = (float(mec1[g, 0]), float(mec1[g, 1]))
                 refined[(j, 2)] = best[g, :bt.num_reads]
                 stats[(j, 2)] = (float(mec2[g, 0]), float(mec2[g, 1]))
             continue
-        mec = mecs[0]
+        mec = next(hosts)
         for g, (j, bt) in enumerate(members):
             refined[(j, ploidy)] = best[g, :bt.num_reads]
             stats[(j, ploidy)] = (float(mec[g, 0]), float(mec[g, 1]))
     timing.add("phase.wait", time.time() - pull_t)
+    return refined, stats
+
+
+def _chunks(members: list, key: Tuple[int, int],
+            options: Optional[Options]):
+    """`members` of the shape bucket key = (r_pad, s_pad) in dispatches
+    of at most the dispatch cap's read-site cells (`_sweep_cap_cells`).
+    Instances are independent, so the split changes no result."""
+    g_cap = max(1, _sweep_cap_cells(options) // (key[0] * key[1]))
+    return [members[lo:lo + g_cap] for lo in range(0, len(members), g_cap)]
+
+
+def _mesh_caches(blocks, cache: Optional[BlockDeviceCache],
+                 mesh: List[torch.device]) -> List[BlockDeviceCache]:
+    """The BlockDeviceCache of each shard of `mesh`, in shard order:
+    `cache` on its own card, which must be one of the mesh's (compared
+    by `same_card`), and a new one of `blocks` on every other card.
+    Shards on one card share its cache, as it is only read."""
+    cards = [same_card(dev) for dev in mesh]
+    by_card = {}
+    if cache is not None:
+        if same_card(cache.device) not in cards:
+            raise ValueError(f"the cache lives on {cache.device}, not on "
+                             f"{', '.join(map(str, dict.fromkeys(cards)))}")
+        by_card[same_card(cache.device)] = cache
+    for dev, card in zip(mesh, cards):
+        if card not in by_card:
+            by_card[card] = BlockDeviceCache(blocks, device=dev)
+    return [by_card[card] for card in cards]
+
+
+def phase_instances(blocks: List[Tuple[object, BlockTensor]],
+                    options: Options, ploidies,
+                    cache: Optional[BlockDeviceCache] = None, *, device
+                    ) -> Dict[Tuple[object, int], np.ndarray]:
+    """The beam scan and traceback (K1 on a card) of every (block,
+    ploidy) instance, batched by (padded reads, padded sites) shape
+    bucket with mixed ploidies in one dispatch at the largest ploidy
+    (inactive parts masked; a block's result does not depend on its
+    batch), in chunks of the dispatch cap. `device` is a device or a
+    block mesh, as adaptive_sweep takes it: over a mesh of more than one
+    shard each dispatch splits over the shards (`_launch_sharded`), as
+    the reference's `_dispatch_beam` shards it. `cache`, when given, is
+    the one of its card. Every dispatch is enqueued before the results
+    are pulled once (`beam.pull`).
+
+    Returns {(block key, ploidy): assignment [num_reads] int32}."""
+    check_no_tf32()
+    ploidies = list(ploidies)
+    caches = _mesh_caches(
+        blocks, cache, make_block_mesh(options.num_devices, device=device))
+    groups: Dict[Tuple[int, int],
+                 List[Tuple[int, object, BlockTensor]]] = {}
+    for ploidy in ploidies:
+        for j, bt in blocks:
+            key = (_bucket_reads(bt.num_reads), _bucket_sites(bt.num_sites))
+            groups.setdefault(key, []).append((ploidy, j, bt))
+    max_ploidy = max(ploidies) if ploidies else 1
+    dispatches = [(chunk, key, _dispatch_window(
+        [(j, bt) for _p, j, bt in chunk], key[1]))
+        for key, members in groups.items()
+        for chunk in _chunks(members, key, options)]
+
+    def launch(cache, chunk, key, window):
+        dev = cache.device
+        nreads = np.array([bt.num_reads for _p, _j, bt in chunk], np.int32)
+        nparts = np.array([p for p, _j, _bt in chunk], np.int32)
+        eps = np.full(len(chunk), options.epsilon, np.float32)
+        alleles, weights = cache.gather(key, [j for _p, j, _bt in chunk])
+        _result, assigns = beam_kernel.beam_search_traceback(
+            alleles, weights, upload(nreads, dev), upload(eps, dev),
+            upload(nparts, dev), max_ploidy, options.max_number_solns,
+            max_alleles=cache.amax[key], window=window, device=dev,
+            check_windows=False)
+        log.debug("beam group r_pad=%d s_pad=%d G=%d window=%d on %s",
+                  key[0], key[1], len(chunk), window, dev)
+        return chunk, assigns
+
+    pending = _launch_sharded(caches, dispatches, launch)
+    pull_t = time.time()
+    hosts = pull([assigns for _chunk, assigns in pending])
+    timing.add("beam.pull", time.time() - pull_t)
+    tb_t = time.time()
+    out: Dict[Tuple[object, int], np.ndarray] = {}
+    for (chunk, _assigns), host in zip(pending, hosts):
+        for g, (ploidy, j, bt) in enumerate(chunk):
+            out[(j, ploidy)] = host[g, :bt.num_reads].astype(np.int32)
+    timing.add("beam.traceback", time.time() - tb_t)
+    return out
+
+
+def refine_instances(blocks: List[Tuple[object, BlockTensor]],
+                     assignments: Dict[Tuple[object, int], np.ndarray],
+                     options: Options,
+                     cache: Optional[BlockDeviceCache] = None,
+                     ploidies=None, *, device) -> Tuple[
+                         Dict[Tuple[object, int], np.ndarray],
+                         Dict[Tuple[object, int], Tuple[float, float]]]:
+    """The UPEM climb and unit-weight MEC stats of every (block, ploidy)
+    instance (ploidies default 1..options.max_ploidy) on the one device
+    `device`, as the reference runs it on its default device, from
+    `assignments[(block key, ploidy)]` (ploidy 1 starts from all zeros),
+    batched by (ploidy, padded reads, padded sites) in chunks of the
+    dispatch cap: one climb kernel launch per chunk on a card, all
+    enqueued (`upem.launch`) before the results are pulled once
+    (`upem.pull`).
+
+    Returns ({(block key, ploidy): refined assignment [num_reads]
+    int32}, {(block key, ploidy): (bases, errors)})."""
+    check_no_tf32()
+    cache, = _mesh_caches(blocks, cache, [resolve_device(device)])
+    dev = cache.device
+    if ploidies is None:
+        ploidies = range(1, options.max_ploidy + 1)
+    groups: Dict[Tuple[int, int, int],
+                 List[Tuple[object, BlockTensor]]] = {}
+    for ploidy in ploidies:
+        for j, bt in blocks:
+            key = (ploidy, _bucket_reads(bt.num_reads),
+                   _bucket_sites(bt.num_sites))
+            groups.setdefault(key, []).append((j, bt))
+    launch_t = time.time()
+    pending = []
+    for (ploidy, *shape), members in groups.items():
+        key = tuple(shape)
+        for chunk in _chunks(members, key, options):
+            assigns = np.zeros((len(chunk), key[0]), np.int32)
+            nreads = np.array([bt.num_reads for _j, bt in chunk], np.int32)
+            if ploidy > 1:
+                for g, (j, bt) in enumerate(chunk):
+                    assigns[g, :bt.num_reads] = assignments[(j, ploidy)]
+            eps = np.full(len(chunk), options.epsilon, np.float32)
+            alleles, weights = cache.gather(key, [j for j, _bt in chunk])
+            best, mec, _diff = upem_optimize_device(
+                alleles, weights, upload(assigns, dev), upload(nreads, dev),
+                upload(eps, dev), ploidy, max_alleles=cache.amax[key],
+                device=dev)
+            pending.append((chunk, ploidy, best, mec))
+    timing.add("upem.launch", time.time() - launch_t)
+    pull_t = time.time()
+    hosts = iter(pull([x for _c, _p, best, mec in pending
+                       for x in (best, mec)]))
+    timing.add("upem.pull", time.time() - pull_t)
+    refined: Dict[Tuple[object, int], np.ndarray] = {}
+    stats: Dict[Tuple[object, int], Tuple[float, float]] = {}
+    for chunk, ploidy, _best, _mec in pending:
+        best, mec = next(hosts), next(hosts)
+        for g, (j, bt) in enumerate(chunk):
+            refined[(j, ploidy)] = best[g, :bt.num_reads]
+            stats[(j, ploidy)] = (float(mec[g, 0]), float(mec[g, 1]))
     return refined, stats

@@ -42,10 +42,13 @@ from floria_tpu_torch.kernels import upem_batch as TU
 from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.phase import local as TL
 from test_beam_pallas import _make
-from test_torch_decisions_a import (hold_counts, jax_nw_flips, record_config,
-                                    record_run)
+from test_torch_decisions_a import (hold_counts, jax_blocks, jax_nw_flips,
+                                    jax_options, record_config, record_run)
 from test_torch_oracle_configs import SMALL, run_both
 from test_torch_climb_kernel import CASES as CLIMB_CASES, climb_case
+from test_torch_instances_a import _dedup_block, _same, port_blocks
+from test_torch_instances_b import _padded, instances  # noqa: F401
+from test_upem_batch import _mk_block
 from test_torch_upem import CASES, _batch, moves_case
 
 pytestmark = pytest.mark.cuda
@@ -590,8 +593,8 @@ def test_sweep_level_launch_makes_no_host_wait(dev, which, monkeypatch):
     blocks = workload_blocks() if which == "workload" else _deep_blocks()
     opts = Options(epsilon=0.02, max_ploidy=6)
     card, cpu = torch.device("cuda", 0), torch.device("cpu")
-    caches = {card: TL.BlockDeviceCache(blocks, device=card)}
-    cpu_caches = {cpu: TL.BlockDeviceCache(blocks, device=cpu)}
+    caches = [TL.BlockDeviceCache(blocks, device=card)]
+    cpu_caches = [TL.BlockDeviceCache(blocks, device=cpu)]
     waits = []
     sync = torch.cuda.Event.synchronize
     monkeypatch.setattr(torch.cuda.Event, "synchronize",
@@ -601,14 +604,14 @@ def test_sweep_level_launch_makes_no_host_wait(dev, which, monkeypatch):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            pending = TL._sweep_launch(blocks, opts, [card], caches, [level])
+            pending = TL._sweep_launch(blocks, opts, caches, [level])
         finally:
             torch.cuda.set_sync_debug_mode(0)
         n = len(waits)
         refined, stats = TL._sweep_pull(pending)
         assert len(waits) == n + 1
         if which == "deep":
-            want = TL._sweep_pull(TL._sweep_launch(blocks, opts, [cpu],
+            want = TL._sweep_pull(TL._sweep_launch(blocks, opts,
                                                    cpu_caches, [level]))
             assert stats == want[1]
             for k, v in want[0].items():
@@ -778,3 +781,198 @@ def test_k5_decisions_match_jax_nw(dev, tmp_path):
         "jobs_differing": len(flips), "first_differing": flips[:10],
         "alleles": args[5], "nvidia_smi": nvidia_smi_line()}))
     assert n == 643_124 and flips == []
+
+
+# The instance API on the card (floria_tpu_torch's phase_instances,
+# refine_instances, beam_search_batch, traceback, upem_eval_batch,
+# optimize_batch and optimize_many) against the JAX package on JAX's CPU
+# backend, bitwise.
+
+
+def test_instance_api_on_the_card_matches_jax(dev, instances):
+    """phase_instances at ploidies 2..5 (one mixed K1 dispatch per shape
+    bucket) and refine_instances at 1..5 (one climb kernel launch per
+    ploidy and bucket, ploidy 1 included) on the card, against the JAX
+    package's on the same five blocks of two buckets."""
+    from floria_tpu_torch.options import Options
+
+    blocks, opts, want_beam, (want_ref, want_stats) = instances
+    ours = port_blocks(blocks)
+    _build.LAUNCHES.clear()
+    beam = TL.phase_instances(ours, Options(**opts), [2, 3, 4, 5],
+                              device=dev)
+    ref, stats = TL.refine_instances(ours, want_beam, Options(**opts),
+                                     device=dev)
+    assert dict(_build.LAUNCHES) == {"beam_scan": 2, "upem_climb": 10}
+    for got, want in ((beam, want_beam), (ref, want_ref)):
+        assert set(got) == set(want)
+        for key in want:
+            assert _same(got[key], want[key]), key
+    assert stats == want_stats
+
+
+def test_instance_api_takes_a_cache_of_the_card_named_either_way(
+        dev, instances):
+    """A cache built on "cuda:0" serves the entries called with "cuda",
+    and one built on "cuda" those called with "cuda:0", with the JAX
+    package's results; a cache of the CPU is refused."""
+    from floria_tpu_torch.options import Options
+
+    blocks, opts, want_beam, (want_ref, want_stats) = instances
+    ours = port_blocks(blocks)
+    torch.cuda.set_device(0)
+    for own, call in (("cuda:0", "cuda"), ("cuda", "cuda:0")):
+        cache = TL.BlockDeviceCache(ours, device=own)
+        _build.LAUNCHES.clear()
+        beam = TL.phase_instances(ours, Options(**opts), [2, 3, 4, 5],
+                                  cache, device=call)
+        ref, stats = TL.refine_instances(ours, want_beam, Options(**opts),
+                                         cache, device=call)
+        assert dict(_build.LAUNCHES) == {"beam_scan": 2, "upem_climb": 10}
+        for got, want in ((beam, want_beam), (ref, want_ref)):
+            assert set(got) == set(want)
+            for key in want:
+                assert _same(got[key], want[key]), key
+        assert stats == want_stats
+    cpu = TL.BlockDeviceCache(ours, device="cpu")
+    with pytest.raises(ValueError, match="cache lives on cpu"):
+        TL.refine_instances(ours, want_beam, Options(**opts), cpu,
+                            device="cuda")
+
+
+def test_beam_and_upem_batch_api_on_the_card_match_jax(dev):
+    """beam_search_batch (the dedup-teeth instance with the dedup on and
+    off, a windowed batch) with traceback, upem_eval_batch,
+    optimize_batch and optimize_many on the card against the JAX
+    package's functions on the same inputs."""
+    from floria_tpu.kernels import beam as B
+    from floria_tpu.kernels import upem_batch as U
+    from test_windowed_beam import _long_block
+
+    _frags, bt, P = _dedup_block()
+    args = (bt.alleles[None], bt.weights[None],
+            np.array([bt.num_reads], np.int32), np.array([0.03], np.float32))
+    for dedup in (True, False):
+        want = B.beam_search_batch(*args, ploidy=P, beam_width=10,
+                                   dedup=dedup)
+        got = TB.beam_search_batch(*args, ploidy=P, beam_width=10,
+                                   dedup=dedup, device=dev)
+        for name, a, b in zip(want._fields, want, got):
+            assert _same(b.cpu(), np.asarray(a)), (dedup, name)
+        assert _same(TB.traceback(tuple(x[0] for x in got), bt.num_reads, P),
+                     B.traceback(tuple(np.asarray(a)[0] for a in want),
+                                 bt.num_reads, P))
+    largs = _long_block()
+    want = B.beam_search_batch(*largs, ploidy=2, beam_width=6, window=384)
+    got = TB.beam_search_batch(*largs, ploidy=2, beam_width=6, window=384,
+                               device=dev)
+    for name, a, b in zip(want._fields, want, got):
+        assert _same(b.cpu(), np.asarray(a)), name
+    for ploidy in (2, 3):
+        alleles, weights, assigns, nreads, eps = _padded(
+            [_mk_block(s, ploidy=ploidy) for s in (11, 12, 13)], ploidy, 99)
+        want = U.upem_eval_batch(alleles, weights, assigns, eps, ploidy)
+        got = TU.upem_eval_batch(alleles, weights, assigns, eps, ploidy,
+                                 device=dev)
+        for a, b in zip(want, got):
+            assert _same(b.cpu(), np.asarray(a))
+        want = U.optimize_batch(alleles, weights, assigns.copy(), nreads,
+                                eps, ploidy)
+        _build.LAUNCHES.clear()
+        got = TU.optimize_batch(alleles, weights, assigns, nreads, eps,
+                                ploidy, device=dev)
+        assert dict(_build.LAUNCHES) == {"upem_climb": 1}
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    groups = []
+    for ploidy, seeds in ((2, (21, 22)), (3, (31, 32, 33))):
+        a = _padded([_mk_block(s, ploidy=ploidy) for s in seeds], ploidy,
+                    ploidy)
+        groups.append((U._GroupState(*a[:2], a[2].copy(), *a[3:], ploidy),
+                       TU._GroupState(*a, ploidy, device=dev)))
+    U.optimize_many([j for j, _p in groups])
+    TU.optimize_many([p for _j, p in groups])
+    for j, p in groups:
+        for name in ("best", "best_mec", "diff"):
+            assert _same(getattr(p, name), getattr(j, name)), name
+
+
+@pytest.mark.parametrize("route", [{}, {"cluster": 1, "shared": True},
+                                   {"cluster": 1, "shared": False},
+                                   {"cluster": 2, "shared": True},
+                                   {"cluster": 8, "shared": False}])
+@pytest.mark.parametrize("R,S,A,seed,nreads", [
+    (64, 200, 2, 1, [64, 50, 7, 0]), (300, 2048, 2, 2, [300, 290]),
+    (96, 61, 4, 3, [96, 96, 1])])
+def test_climb_kernel_at_ploidy_one_matches_plain_and_jax(dev, route, R, S,
+                                                          A, seed, nreads):
+    """The climb kernel at P = 1, as refine_instances launches it: a move
+    function with one part and no candidate (its work region holds the
+    moved flags alone), an instance with no read, each route forced;
+    against upem_climb_plain on the card and the JAX climb
+    (`upem_optimize_device`) on the CPU, bitwise."""
+    from floria_tpu.kernels import upem_batch as U
+
+    args = climb_case(R, S, 1, A, seed, nreads)
+    got = _climb_kernel_vs_plain(dev, args, 1, A, **route)
+    want = U.upem_optimize_device(*args, 1, max_alleles=A)
+    for name, a, b in zip(("best", "mec", "diff"), want, got):
+        assert np.array_equal(np.asarray(a), b.cpu().numpy()), name
+
+
+def _ecoli2_blocks(tmp_path):
+    """The blocks and Options of the port's sweep on bench.py's ecoli2
+    community (its CLI on cuda:0)."""
+    import chip_smoke
+    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+
+    sim_dir = str(tmp_path / "ecoli2")
+    simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
+    with chip_smoke.SweepRecorder() as rec:
+        chip_smoke.run_cli(sim_dir, str(tmp_path / "out"), device="cuda:0")
+    (blocks, opts, *_rest), = rec.sweeps
+    return blocks, opts
+
+
+def test_mixed_k1_dispatch_at_ecoli2_largest_bucket_matches_jax(dev,
+                                                                tmp_path):
+    """ecoli2's largest shape bucket (R = 256, S = 2048): its first 16
+    blocks at ploidies 2..5 in one mixed K1 dispatch (64 instances, in
+    clusters) and refine_instances at 1..5 on the card against the JAX
+    package's phase_instances / refine_instances on the CPU; then the
+    whole bucket on the card (chunks of the dispatch cap) against the
+    JAX package's digests in tests/data/instances_golden.json."""
+    import chip_smoke
+    from floria_tpu.phase import local as JL
+
+    blocks, opts = _ecoli2_blocks(tmp_path)
+    buckets = {}
+    for j, bt in blocks:
+        buckets.setdefault((TL._bucket_reads(bt.num_reads),
+                            TL._bucket_sites(bt.num_sites)), []).append(
+                                (j, bt))
+    key, bucket = max(buckets.items(), key=lambda kv: len(kv[1]))
+    assert key == (256, 2048) and len(bucket) == 115
+    part = bucket[:16]
+    with chip_smoke.DispatchRecorder() as rec:
+        beam = TL.phase_instances(part, opts, [2, 3, 4, 5], device=dev)
+    assert [tuple(d[0][0].shape) for d in rec.beam] == [(64, 256, 2048)]
+    ref, stats = TL.refine_instances(part, beam, opts, device=dev)
+    want_beam = JL.phase_instances(jax_blocks(part), jax_options(opts),
+                                   [2, 3, 4, 5])
+    want_ref, want_stats = JL.refine_instances(
+        jax_blocks(part), want_beam, jax_options(opts))
+    for got, want in ((beam, want_beam), (ref, want_ref)):
+        assert set(got) == set(want)
+        flips = [k for k in want if not _same(got[k], want[k])]
+        assert flips == [], flips[:10]
+    assert stats == want_stats
+    with open(chip_smoke.GOLDEN_INSTANCES) as fh:
+        golden = json.load(fh)["cases"]["ecoli2"]
+    beam = TL.phase_instances(bucket, opts, [2, 3, 4, 5], device=dev)
+    digests = chip_smoke.instance_digests(
+        beam, *TL.refine_instances(bucket, beam, opts, device=dev))
+    for what in ("beam", "refine"):
+        flips = [k for k, d in digests[what].items()
+                 if golden[what][k] != d]
+        assert len(digests[what]) == (4 if what == "beam" else 5) * 115
+        assert flips == [], (what, flips[:10])

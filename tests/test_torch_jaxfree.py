@@ -191,6 +191,92 @@ def test_tools_run_with_jax_and_the_reference_blocked(tmp_path):
     assert c_fa[0] == ">HAP0.x" and "N" in c_fa[1]
 
 
+_INSTANCES_CHILD = _REFUSE + r"""
+import numpy as np
+from chip_smoke import make_workload, workload_blocks
+from floria_tpu_torch import native
+from floria_tpu_torch.kernels import beam, upem_batch
+from floria_tpu_torch.options import Options
+from floria_tpu_torch.parallel.mesh import pad_to_multiple
+from floria_tpu_torch.phase import local
+al, wt, nr, eps = make_workload(2, 24, 64)
+res = beam.beam_search_batch(al, wt, nr, eps, 2, 4, device="cpu")
+a0 = beam.traceback(tuple(x[0] for x in res), int(nr[0]), 2)
+diff, score, mec = upem_batch.upem_eval_batch(al, wt, np.stack([a0, a0]),
+                                              eps, 2, device="cpu")
+best, mec = upem_batch.optimize_batch(al, wt, np.stack([a0, a0]), nr, eps,
+                                      2, device="cpu")
+gs = upem_batch._GroupState(al, wt, best, nr, eps, 2, device="cpu")
+upem_batch.optimize_many([gs])
+blocks = workload_blocks(2, 24, 64)
+opts = Options(max_ploidy=3)
+asg = local.phase_instances(blocks, opts, [2, 3], device="cpu")
+ref, stats = local.refine_instances(blocks, asg, opts, device="cpu")
+n = native.baseline_sweep(al, wt, [2, 3], 4, float(eps[0]))
+packed = native.pack_windows(np.frombuffer(b"ACGT" * 64, np.uint8),
+                             np.array([40, 80]), 16)
+assert (pad_to_multiple(5, 4), len(asg), len(ref), n, packed.shape) == (
+    8, 4, 6, 48, (2, 16)), (len(asg), len(ref), n)
+""" + _UNLOADED + r"""
+print("JAXFREE_OK")
+"""
+
+
+def test_instance_api_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """The instance API (beam_search_batch, traceback, upem_eval_batch,
+    optimize_batch, optimize_many, phase_instances, refine_instances,
+    native.baseline_sweep and pack_windows, pad_to_multiple) in a process
+    that refuses jax and `floria_tpu`."""
+    proc = _run(_INSTANCES_CHILD.format(repo=REPO), cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "JAXFREE_OK"
+
+
+def _public_defs(root):
+    """{module path: names of its top-level public functions and
+    classes} of the package at `root`."""
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(d, f)
+                with open(path) as fh:
+                    tree = ast.parse(fh.read())
+                out[os.path.relpath(path, root)] = {
+                    n.name for n in tree.body
+                    if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                    and not n.name.startswith("_")}
+    return out
+
+
+# What the port leaves out of the JAX package, each for the reason
+# ROADMAP.md's queue 1 gives: the AOT blob cache, the Pallas kernel (K1
+# is its port), the numpy oracles the JAX tests call, and the numpy /
+# jnp pairs of the score functions (the port's binom_tail and
+# log_sum_exp serve both).
+NOT_PORTED = {
+    "aotcache.py": None, "kernels/beam_pallas.py": None,
+    "kernels/stats.py": None, "kernels/upem.py": None,
+    "kernels/scores.py": {"binom_tail_np", "binom_tail_jnp",
+                          "log_sum_exp_np", "log_sum_exp_jnp"},
+}
+
+
+def test_port_defines_every_public_function_of_the_reference():
+    """Module by module and name by name, every top-level public function
+    and class of `floria_tpu` has its namesake in the port, apart from
+    NOT_PORTED."""
+    ref = _public_defs(os.path.join(REPO, "floria_tpu"))
+    port = _public_defs(PKG)
+    missing = {}
+    for mod, names in ref.items():
+        if mod not in port:
+            missing[mod] = None
+        elif names - port[mod]:
+            missing[mod] = names - port[mod]
+    assert missing == NOT_PORTED
+
+
 _IMPORT_ALL = r"""
 import pkgutil, importlib, floria_tpu_torch
 mods = [importlib.import_module(m.name) for m in pkgutil.walk_packages(
