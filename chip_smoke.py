@@ -72,7 +72,7 @@ each; any failure raises (exit code != 0):
                 metric (G * R * 3 / elapsed of one mixed dispatch on
                 inputs already on the card) at both shapes and its CPU
                 denominators (`native.baseline_sweep`, faithful and
-                dense) through the port on this host;
+                dense) through `floria_tpu_torch.bench` on this host;
   7. parity   - the port's CLI on the `long3` community must write the
                 oracle pipeline's bytes (tests/data/long3_oracle.json);
  7b. north_star - the port's CLI on the round's 12 small configs (the
@@ -125,6 +125,18 @@ each; any failure raises (exit code != 0):
                 kbp, 2 strains, 300 SNPs, 8x per strain, 6 kbp reads): the
                 same bytes, each rank's launch counts (every rank must
                 launch K1 and K6, none K4), both wall times;
+ 8e. bench    - the port's measurement entry points, each in a process of
+                its own from the checkout's root, launches counted from
+                0: `python -m floria_tpu_torch.bench` (bench.py's
+                measurements and keys on the port: K1's mixed dispatch at
+                both shapes, the CPU denominators, `ecoli2`'s first, warm
+                and fresh-process e2e on phase 4's simulated inputs; its
+                line must hold every key of bench.RESULT_KEYS, 11,111
+                phased reads and this card's nvidia-smi line, and its
+                e2e runs launch K1, K5 and K6, never K4), then
+                `floria_tpu_torch.scripts.mfu`, `scaling_bench --shards
+                1,2` and `profile_beam --point 32,256,0`, each launching
+                K1 and printing the card beside its times;
  decisions   - in phases 4 (`ecoli2`'s second run), 7b (each config),
                 7c (`config4`'s second run) and 8d (`multi500` in one
                 process and as two ranks, each rank recording its own):
@@ -197,9 +209,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from floria_tpu_torch import bench
+from floria_tpu_torch.bench import bound, k1_bound, make_workload, \
+    nvidia_smi_line
+from floria_tpu_torch.scripts import multihost_bench
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
 # `nvidia-smi` name and power limit, set in main() and written beside
 # every time.
 CARD = None
@@ -227,95 +242,17 @@ GOLDEN_SWEEP = os.path.join(REPO, "tests", "data", "sweep_golden.json")
 GOLDEN_INSTANCES = os.path.join(REPO, "tests", "data",
                                 "instances_golden.json")
 # bench.py's two kernel shapes (`measure_kernel`: G blocks of R reads and
-# S sites, each phased at every ploidy of BENCH_PLOIDIES in one mixed
+# S sites, each phased at every ploidy of bench.PLOIDIES in one mixed
 # dispatch, beam width 10, two alleles).
 BENCH_SHAPES = ((32, 256, 256), (8, 320, 2048))
-BENCH_PLOIDIES = (2, 3, 4, 5)
-# bench.py's `ecoli2` e2e community (bench.py:134).
-ECOLI2 = dict(contig_len=1_000_000, num_strains=2, num_snps=50_000,
-              coverage_per_strain=50.0, read_length=9_000,
-              read_length_sd=1_500.0, error_rate=0.02, seed=11)
-
-
-# scripts/multihost_bench.py's `build_sim` community, BASELINE.json's
-# config #5 (a 500-contig assembly sharded over processes), one contig's
-# SimConfig fields; contig c is named mg{c:04d} and seeded 4000 + c.
-MULTI_CONTIG = dict(contig_len=60_000, num_strains=2, num_snps=300,
-                    coverage_per_strain=8.0, read_length=6_000,
-                    read_length_sd=1_000.0, error_rate=0.02)
-MULTI_CONTIGS = 500
-
-
-def multi_configs(n):
-    from floria_tpu_torch.sim.simulate import SimConfig
-
-    return [SimConfig(contig_name=f"mg{c:04d}", seed=4000 + c,
-                      **MULTI_CONTIG) for c in range(n)]
-
-
-def make_workload(G, R, S, num_strains=3, epsilon=0.02, seed=0):
-    """bench.py's `make_workload` (the kernel sweep's synthetic blocks:
-    G instances of R reads, each covering half of S sites, sorted by
-    start), copied so the smoke needs nothing of the JAX package's
-    benchmark; a CPU test holds the two equal."""
-    rng = np.random.default_rng(seed)
-    strains = rng.integers(0, 2, (G, num_strains, S))
-    origin = rng.integers(0, num_strains, (G, R))
-    span = S // 2
-    starts = rng.integers(0, S - span, (G, R))
-    alleles = np.full((G, R, S), -1, dtype=np.int8)
-    weights = np.zeros((G, R, S), dtype=np.float32)
-    for g in range(G):
-        for r in range(R):
-            s0 = starts[g, r]
-            hap = strains[g, origin[g, r], s0:s0 + span].copy()
-            err = rng.random(span) < epsilon
-            hap[err] = 1 - hap[err]
-            alleles[g, r, s0:s0 + span] = hap
-            weights[g, r, s0:s0 + span] = 1.0 - 10.0 ** (
-                rng.integers(10, 40, span) / -10.0)
-    order = np.argsort(starts, axis=1, kind="stable")
-    alleles = np.take_along_axis(alleles, order[:, :, None], axis=1)
-    weights = np.take_along_axis(weights, order[:, :, None], axis=1)
-    num_reads = np.full(G, R, dtype=np.int32)
-    eps = np.full(G, epsilon, dtype=np.float32)
-    return alleles, weights, num_reads, eps
+# Phased reads of bench.py's `ecoli2` community (its haploset members).
+ECOLI2_READS = 11_111
 
 
 def emit(obj) -> None:
     if CARD is not None and any(k.endswith(("_ms", "_s")) for k in obj):
         obj = {**obj, "card": CARD}
     print(json.dumps(obj), flush=True)
-
-
-def bound(nbytes: float, ops: float):
-    """(bound_ms, bound_by): the least time for `nbytes` of traffic and
-    `ops` operations on the card."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
-
-
-def k1_bound(al, nr, npt, P, W):
-    """K1's bound on these inputs: each real read's alleles (1 B) and
-    weights (4 B) over its covered span, read once; the records, scores,
-    live flags and assignments written once; per (active part, covered
-    column) of each read one comparison and one addition against at
-    least one slot."""
-    G, R, S = al.shape
-    cov = al >= 0
-    real = (torch.arange(R, device=al.device)[None, :]
-            < nr.long()[:, None]) & cov.any(-1)
-    first = torch.argmax(cov.to(torch.uint8), dim=-1)
-    last = S - 1 - torch.argmax(cov.flip(-1).to(torch.uint8), dim=-1)
-    span = int(torch.where(real, last - first + 1, 0).sum())
-    ncov = (cov & real[..., None]).sum(dim=(1, 2)).long()
-    T1 = min(25, R)
-    rec = 1 if P * W <= 127 else 2
-    Bf = W if R > T1 else P * W
-    nbytes = (span * 5 + G * 24
-              + G * (2 * T1 * P * W + 2 * (R - T1) * W + R) * rec
-              + G * Bf * 9)
-    return bound(nbytes, 2 * int((ncov * npt.long()).sum()))
 
 
 def k4_bound(assign, diff, num_reads):
@@ -335,14 +272,6 @@ def k5_bound(q, si, nal, ref_tab, al_tab, a_max):
               + ref_tab.numel() + al_tab.numel() + q.shape[0])
     cells = 32 * 32 * int(nal.clamp(max=a_max).sum())
     return bound(nbytes, 10 * cells)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def timed(fn, reps=3):
@@ -1308,12 +1237,10 @@ def e2e_ecoli2(tmp):
     record}, its sweep's (blocks, Options))."""
     from floria_tpu_torch import timing
     from floria_tpu_torch.kernels import _build
-    from floria_tpu_torch.sim.simulate import SimConfig, simulate
 
-    cfg = SimConfig(**ECOLI2)
-    sim_dir = os.path.join(tmp, "ecoli2")
+    # Simulated where the bench phase's --cache-dir finds it.
     t0 = time.time()
-    simulate(cfg, sim_dir)
+    cfg, sim_dir = bench.e2e_inputs(False, tmp)
     emit({"phase": "e2e", "config": "ecoli2", "simulate_s":
           time.time() - t0})
     out_dir = os.path.join(tmp, "ecoli2_out")
@@ -2091,64 +2018,6 @@ def bench_blocks(G, R, S):
                                              max_ploidy=5)
 
 
-def bench_kernel_rps(dev, args, iters=3):
-    """bench.py's `measure_kernel` on the card: every block of `args`
-    (make_workload's) at the ploidies BENCH_PLOIDIES in one mixed K1
-    dispatch (beam width 10, two alleles) on inputs already on the card,
-    one warm call, then `iters` calls, each ending in a pull of the
-    scores. Returns (G * R * iters / elapsed, seconds per call)."""
-    from floria_tpu_torch.kernels import beam as tb
-
-    alleles, weights, num_reads, eps = args
-    G, R, _S = alleles.shape
-    k = len(BENCH_PLOIDIES)
-
-    def put(x):
-        return torch.from_numpy(np.concatenate([x] * k)).to(dev)
-
-    al, wt, nr, ep = put(alleles), put(weights), put(num_reads), put(eps)
-    nparts = torch.from_numpy(np.repeat(np.array(BENCH_PLOIDIES, np.int32),
-                                        G)).to(dev)
-
-    def sweep():
-        out = tb.beam_search_batch_mixed(al, wt, nr, ep, nparts,
-                                         max(BENCH_PLOIDIES), 10,
-                                         max_alleles=2, device=dev)
-        out.scores.cpu()
-
-    sweep()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        sweep()
-    elapsed = time.perf_counter() - t0
-    return G * R * iters / elapsed, elapsed / iters
-
-
-def baseline_rps():
-    """bench.py's CPU denominators through the port's native bridge, on
-    this host: `measure_cpu_baseline` (the first 4 blocks of
-    make_workload(32, 256, 256), ploidies 2..5, beam width 10, faithful
-    and dense) and bench.py:376-381 (the first block of
-    make_workload(8, 320, 2048), faithful). Reads per second each."""
-    from floria_tpu_torch import native
-
-    out = {}
-    alleles, weights, _nr, eps = make_workload(*BENCH_SHAPES[0])
-    for name, faithful in (("faithful", True), ("dense", False)):
-        t0 = time.perf_counter()
-        n = native.baseline_sweep(alleles[:4], weights[:4],
-                                  list(BENCH_PLOIDIES), 10, float(eps[0]),
-                                  faithful=faithful)
-        out[f"baseline_{name}_reads_per_s"] = n / (time.perf_counter() - t0)
-    alleles, weights, _nr, eps = make_workload(*BENCH_SHAPES[1])
-    t0 = time.perf_counter()
-    n = native.baseline_sweep(alleles[:1], weights[:1], list(BENCH_PLOIDIES),
-                              10, float(eps[0]), faithful=True)
-    out["baseline_realshape_faithful_reads_per_s"] = n / (
-        time.perf_counter() - t0)
-    return out
-
-
 def hold_plain_on_card(label, beams, climbs):
     """Every K1 dispatch (DispatchRecorder.beam) and K6 climb
     (ClimbRecorder) an instance path made, against its plain version on
@@ -2288,7 +2157,7 @@ def instances_phase(dev, ecoli2):
         _build.LAUNCHES.clear()
         with DispatchRecorder() as beams, ClimbRecorder() as climbs:
             t0 = time.perf_counter()
-            beam = local.phase_instances(blocks, opts, BENCH_PLOIDIES,
+            beam = local.phase_instances(blocks, opts, bench.PLOIDIES,
                                          device=dev)
             refined, stats = local.refine_instances(
                 blocks, beam, opts, ploidies=range(1, opts.max_ploidy + 1),
@@ -2336,10 +2205,17 @@ def instances_phase(dev, ecoli2):
             "beam_instances", "climb_instances", "launches", "wall_s",
             "golden_compared", "golden_differing")}
     for G, R, S in BENCH_SHAPES:
-        rps, call_s = bench_kernel_rps(dev, make_workload(G, R, S))
+        rps = bench.measure_kernel(make_workload(G, R, S), False, device=dev)
         summary["cases"][f"bench {G}x{R}x{S}"].update(
-            kernel_reads_per_s=rps, kernel_call_ms=call_s * 1e3)
-    summary.update(baseline_rps())
+            kernel_reads_per_s=rps, kernel_call_ms=G * R / rps * 1e3)
+    faithful, dense = bench.measure_cpu_baseline(
+        make_workload(*BENCH_SHAPES[0]), False)
+    summary.update(
+        baseline_faithful_reads_per_s=faithful,
+        baseline_dense_reads_per_s=dense,
+        baseline_realshape_faithful_reads_per_s=(
+            bench.measure_realshape_baseline(
+                make_workload(*BENCH_SHAPES[1]))))
     summary["nvidia_smi"] = CARD
     summary["max_abs_err"] = {"beam_scan": k1_err, "upem_climb": climb_err}
     summary["phase_s"] = time.perf_counter() - t_phase
@@ -2448,7 +2324,6 @@ def parallel_phase(dev, recorder, tmp):
     from floria_tpu_torch.options import Options
     from floria_tpu_torch.parallel.mesh import beam_search_sharded
     from floria_tpu_torch.phase.local import adaptive_sweep
-    from floria_tpu_torch.sim.simulate import simulate_multi
 
     n_cards = torch.cuda.device_count()
     mesh = ([torch.device("cuda", i) for i in range(n_cards)]
@@ -2540,14 +2415,15 @@ def parallel_phase(dev, recorder, tmp):
     # (d) The CLI as two ranks against one process.
     sim_dir = os.path.join(tmp, "multi")
     t0 = time.time()
-    simulate_multi(multi_configs(MULTI_CONTIGS), sim_dir)
-    emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
-          "contigs": MULTI_CONTIGS, "simulate_s": time.time() - t0})
+    contigs = multihost_bench.CONTIGS
+    multihost_bench.build_sim(contigs, sim_dir)
+    emit({"phase": "parallel", "config": f"multi{contigs}",
+          "contigs": contigs, "simulate_s": time.time() - t0})
     out_dir = os.path.join(tmp, "multi_out")
     runs = {}
     for nproc in (1, 2):
         wall, ranks, digests = run_ranks(sim_dir, out_dir, nproc)
-        hold_decisions(f"multi{MULTI_CONTIGS}", digests, sim_dir,
+        hold_decisions(f"multi{contigs}", digests, sim_dir,
                        run=None if nproc == 1 else "two ranks")
         for k, rank in enumerate(ranks):
             assert_launches(f"rank {k} of {nproc}", rank["launches"])
@@ -2556,7 +2432,7 @@ def parallel_phase(dev, recorder, tmp):
         runs[nproc] = kept
         if nproc == 1:
             one_process_launches = ranks[0]["launches"]
-        emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
+        emit({"phase": "parallel", "config": f"multi{contigs}",
               "processes": nproc, "wall_s": wall,
               "rank_launches": [r["launches"] for r in ranks],
               "rank_cli_s": [r["cli_s"] for r in ranks],
@@ -2571,11 +2447,97 @@ def parallel_phase(dev, recorder, tmp):
             raise AssertionError(f"two ranks: {f} differs from one "
                                  "process")
     vartigs = sum(f.endswith(".vartigs") for f in files)
-    if vartigs != MULTI_CONTIGS:
-        raise AssertionError(f"{vartigs} of {MULTI_CONTIGS} contigs phased")
-    emit({"phase": "parallel", "config": f"multi{MULTI_CONTIGS}",
+    if vartigs != contigs:
+        raise AssertionError(f"{vartigs} of {contigs} contigs phased")
+    emit({"phase": "parallel", "config": f"multi{contigs}",
           "byte_equal": "2 ranks vs 1 process", "files": len(files)})
     return k1, one_process_launches
+
+
+# A module of the port run as `python -m <module> <argv>` in a process
+# of its own; after it, its kernel launch counts (the process starts at
+# 0) and any jax or `floria_tpu` module it loaded.
+MODULE_CHILD = r"""
+import json, runpy, sys
+sys.path.insert(0, {repo!r})
+from floria_tpu_torch.kernels import _build
+sys.argv = [{module!r}, *{argv!r}]
+runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+print("LAUNCHES " + json.dumps({{"launches": dict(_build.LAUNCHES),
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
+}}), flush=True)
+"""
+
+
+def run_module(module, argv, timeout):
+    """`python -m module argv` from the checkout's root (MODULE_CHILD).
+    Returns (its stdout lines before the launch line, its launches,
+    seconds); raises unless it exits 0 and loads neither jax nor
+    `floria_tpu`."""
+    code = MODULE_CHILD.format(repo=REPO, module=module, argv=list(argv))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {module} {' '.join(argv)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    tail = json.loads(lines[-1][len("LAUNCHES "):])
+    if tail["loaded"]:
+        raise AssertionError(f"{module} loaded {tail['loaded']}")
+    return lines[:-1], tail["launches"], seconds
+
+
+def _json_lines(lines):
+    return [json.loads(ln) for ln in lines if ln.startswith("{")]
+
+
+def bench_phase(tmp):
+    """Phase bench: `python -m floria_tpu_torch.bench` on the card, its
+    e2e community the one phase 4 simulated (`--cache-dir`), then at a
+    short grid the four measurement scripts: mfu, scaling_bench at 1 and
+    2 shards, one profile_beam point. Each in a process of its own,
+    counted from 0 launches; each must exit 0 and launch K1. The bench's
+    line must carry every key of bench.RESULT_KEYS, count ECOLI2_READS
+    phased reads, name this card and find the kernels built (this run
+    built them in phase 2); its e2e runs launch K1, K5 and K6, never K4.
+    Returns the bench's result."""
+    lines, launches, seconds = run_module(
+        "floria_tpu_torch.bench", ["--cache-dir", tmp], timeout=600)
+    result = _json_lines(lines)[-1]
+    emit({"phase": "bench", "module": "floria_tpu_torch.bench",
+          "result": result, "launches": launches, "wall_s": seconds})
+    missing = [k for k in bench.RESULT_KEYS if k not in result]
+    if missing:
+        raise AssertionError(f"bench: keys {missing} missing")
+    if result["e2e_reads"] != ECOLI2_READS:
+        raise AssertionError(f"bench: e2e_reads {result['e2e_reads']}, "
+                             f"ecoli2 phases {ECOLI2_READS}")
+    if result["card"] != CARD:
+        raise AssertionError(f"bench: card {result['card']!r}, "
+                             f"nvidia-smi {CARD!r}")
+    if result["e2e_cold_kind"] != bench.e2e_cold_kind(True):
+        raise AssertionError(f"bench: {result['e2e_cold_kind']}, but the "
+                             "kernels were built in phase 2")
+    assert_launches("bench", launches)
+    if launches.get("nw_best", 0) <= 0:
+        raise AssertionError(f"bench: no K5 launch: {launches}")
+    for module, argv in (("floria_tpu_torch.scripts.mfu", []),
+                         ("floria_tpu_torch.scripts.scaling_bench",
+                          ["--shards", "1,2"]),
+                         ("floria_tpu_torch.scripts.profile_beam",
+                          ["--point", "32,256,0"])):
+        lines, launches, seconds = run_module(module, argv, timeout=600)
+        rows = _json_lines(lines)
+        emit({"phase": "bench", "module": module, "argv": argv,
+              "rows": rows, "launches": launches, "wall_s": seconds})
+        if launches.get("beam_scan", 0) <= 0:
+            raise AssertionError(f"{module}: no K1 launch: {launches}")
+        if not any(r.get("card") == CARD for r in rows):
+            raise AssertionError(f"{module}: no row names the card")
+    return result
 
 
 def ptxas_report(lines, kernel: str):
@@ -2681,6 +2643,7 @@ def main(argv=None) -> None:
         tools_phase(tmp, *north_star["long3"])
         sharded, multi_launches = parallel_phase(dev, recorder, tmp)
         del recorder
+        bench_phase(tmp)
 
     loaded = loaded_reference_modules()
     if loaded:

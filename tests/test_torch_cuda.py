@@ -32,9 +32,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (dedup_case, nvidia_smi_line, nw_case, windowed_case,
-                        workload_blocks)
+from chip_smoke import dedup_case, nw_case, windowed_case, workload_blocks
 from floria_tpu_torch import entry, state
+from floria_tpu_torch.bench import nvidia_smi_line
 from floria_tpu_torch.kernels import _build
 from floria_tpu_torch.kernels import beam as TB
 from floria_tpu_torch.kernels import realign as TR
@@ -698,17 +698,17 @@ def _recorded_sweep(case, tmp_path):
     hashes), on bench.py's `ecoli2`, or on config #5's 500-contig
     community `multi500` in one process."""
     import chip_smoke
-    from floria_tpu_torch.sim.simulate import (SimConfig, simulate,
-                                               simulate_multi)
+    from floria_tpu_torch.bench import _e2e_config
+    from floria_tpu_torch.scripts import multihost_bench
+    from floria_tpu_torch.sim.simulate import simulate
 
     if case in chip_smoke.load_north_star()["configs"]:
         return record_config(case, str(tmp_path), device="cuda:0")
     sim_dir, out_dir = str(tmp_path / case), str(tmp_path / "out")
     if case == "ecoli2":
-        simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
+        simulate(_e2e_config(False)[0], sim_dir)
     else:
-        simulate_multi(chip_smoke.multi_configs(chip_smoke.MULTI_CONTIGS),
-                       sim_dir)
+        multihost_bench.build_sim(multihost_bench.CONTIGS, sim_dir)
     return record_run(sim_dir, out_dir, device="cuda:0")
 
 
@@ -762,10 +762,11 @@ def test_k5_decisions_match_jax_nw(dev, tmp_path):
     against `_nw_best_chunked` and, from a second K5 launch that also
     writes them, each allele's score against `_nw_scores`."""
     import chip_smoke
-    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+    from floria_tpu_torch.bench import _e2e_config
+    from floria_tpu_torch.sim.simulate import simulate
 
     sim_dir = str(tmp_path / "ecoli2")
-    simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
+    simulate(_e2e_config(False)[0], sim_dir)
     with chip_smoke.DispatchRecorder() as rec:
         chip_smoke.run_cli(sim_dir, str(tmp_path / "out"), device="cuda:0")
     assert len(rec.nw) == 1
@@ -923,10 +924,11 @@ def _ecoli2_blocks(tmp_path):
     """The blocks and Options of the port's sweep on bench.py's ecoli2
     community (its CLI on cuda:0)."""
     import chip_smoke
-    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+    from floria_tpu_torch.bench import _e2e_config
+    from floria_tpu_torch.sim.simulate import simulate
 
     sim_dir = str(tmp_path / "ecoli2")
-    simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
+    simulate(_e2e_config(False)[0], sim_dir)
     with chip_smoke.SweepRecorder() as rec:
         chip_smoke.run_cli(sim_dir, str(tmp_path / "out"), device="cuda:0")
     (blocks, opts, *_rest), = rec.sweeps

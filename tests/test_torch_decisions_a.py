@@ -423,8 +423,11 @@ def write_sweep_golden(path, names=None):
     from floria_tpu.sim.simulate import (SimConfig, simulate,
                                          simulate_hybrid, simulate_multi)
 
+    from floria_tpu_torch.bench import _e2e_config
+    from floria_tpu_torch.scripts import multihost_bench
+
     north_star = chip_smoke.load_north_star()["configs"]
-    multi = f"multi{chip_smoke.MULTI_CONTIGS}"
+    multi = f"multi{multihost_bench.CONTIGS}"
     names = names or [*north_star, "ecoli2", multi]
     record = {"configs": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -442,11 +445,12 @@ def write_sweep_golden(path, names=None):
                                     short_coverage_per_strain=short)
                 args = chip_smoke.case_args(entry, sim_dir)
             elif name == "ecoli2":
-                simulate(SimConfig(**chip_smoke.ECOLI2), sim_dir)
+                simulate(SimConfig(**dataclasses.asdict(
+                    _e2e_config(False)[0])), sim_dir)
             else:
                 simulate_multi([SimConfig(**dataclasses.asdict(c)) for c in
-                                chip_smoke.multi_configs(
-                                    chip_smoke.MULTI_CONTIGS)], sim_dir)
+                                multihost_bench.multi_configs(
+                                    multihost_bench.CONTIGS)], sim_dir)
             got = jax_golden_entry(sim_dir, os.path.join(tmp, name + "_out"),
                                    args)
             if name in north_star:

@@ -231,7 +231,7 @@ def jax_native(monkeypatch):
 
 @pytest.mark.parametrize("faithful", [True, False])
 def test_baseline_sweep_matches_jax(jax_native, faithful):
-    from chip_smoke import make_workload
+    from floria_tpu_torch.bench import make_workload
 
     alleles, weights, _nr, eps = make_workload(3, 24, 64, seed=5)
     eps0 = float(eps[0])

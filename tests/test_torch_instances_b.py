@@ -20,13 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_workload
 from floria_tpu import frag as JF
 from floria_tpu.kernels import upem_batch as U
 from floria_tpu.options import Options as JaxOptions
 from floria_tpu.phase import local as JL
 from floria_tpu_torch import frag as TF
 from floria_tpu_torch import timing
+from floria_tpu_torch.bench import PLOIDIES, make_workload
 from floria_tpu_torch.kernels import upem_batch as TU
 from floria_tpu_torch.options import Options
 from floria_tpu_torch.phase import local as TL
@@ -299,7 +299,7 @@ def test_instance_entries_refuse_a_cache_of_another_device():
 
 def jax_instance_case(blocks, options, chunk=16):
     """One case of instances_golden.json: the JAX package's
-    phase_instances at chip_smoke.BENCH_PLOIDIES and refine_instances at
+    phase_instances at floria_tpu_torch.bench.PLOIDIES and refine_instances at
     1..options.max_ploidy on JAX blocks and Options, `chunk` blocks per
     call (instances are independent; the chunks bound the memory of
     JAX's unchunked dispatches), as the blocks' digest and
@@ -309,7 +309,7 @@ def jax_instance_case(blocks, options, chunk=16):
     beam, refined, stats = {}, {}, {}
     for lo in range(0, len(blocks), chunk):
         part = blocks[lo:lo + chunk]
-        b = JL.phase_instances(part, options, chip_smoke.BENCH_PLOIDIES)
+        b = JL.phase_instances(part, options, PLOIDIES)
         r, s = JL.refine_instances(part, b, options,
                                    ploidies=range(1, options.max_ploidy + 1))
         beam.update(b)

@@ -104,17 +104,27 @@ def test_cli_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert (contig_dir / "sim_contig.vartigs").stat().st_size > 0
 
 
+# The four measurement scripts also import numpy and torch.
+MEASUREMENT_SCRIPTS = ["mfu", "multihost_bench", "profile_beam",
+                       "scaling_bench"]
+
+
 def test_scripts_import_only_the_port_and_the_standard_library():
     """The four host tools under floria_tpu_torch/scripts/ import the
     standard library and the port's own modules (relative imports that
     stay inside the package), nothing else: no jax, no `floria_tpu`,
-    not even numpy directly."""
+    not even numpy directly; the four measurement scripts beside them
+    add numpy and torch, nothing else."""
     root = os.path.join(PKG, "scripts")
-    tools = sorted(f[:-3] for f in os.listdir(root)
-                   if f.endswith(".py") and f != "__init__.py")
-    assert tools == ["get_bam_partition", "haplotag_bam",
-                     "haplotag_output_dir", "output_snpped_contigs"]
-    for f in ["__init__"] + tools:
+    scripts = sorted(f[:-3] for f in os.listdir(root)
+                     if f.endswith(".py") and f != "__init__.py")
+    tools = ["get_bam_partition", "haplotag_bam", "haplotag_output_dir",
+             "output_snpped_contigs"]
+    assert scripts == sorted(tools + MEASUREMENT_SCRIPTS)
+    for f in ["__init__"] + scripts:
+        allowed = set(sys.stdlib_module_names)
+        if f in MEASUREMENT_SCRIPTS:
+            allowed |= {"numpy", "torch"}
         with open(os.path.join(root, f + ".py")) as fh:
             tree = ast.parse(fh.read())
         for node in ast.walk(tree):
@@ -127,8 +137,7 @@ def test_scripts_import_only_the_port_and_the_standard_library():
                      [node.module] if isinstance(node, ast.ImportFrom)
                      else [])
             for mod in names:
-                assert mod.split(".")[0] in sys.stdlib_module_names, \
-                    (f, mod)
+                assert mod.split(".")[0] in allowed, (f, mod)
         if f != "__init__":
             assert any(isinstance(n, ast.FunctionDef) and n.name == "main"
                        for n in tree.body), f
@@ -193,8 +202,9 @@ def test_tools_run_with_jax_and_the_reference_blocked(tmp_path):
 
 _INSTANCES_CHILD = _REFUSE + r"""
 import numpy as np
-from chip_smoke import make_workload, workload_blocks
+from chip_smoke import workload_blocks
 from floria_tpu_torch import native
+from floria_tpu_torch.bench import make_workload
 from floria_tpu_torch.kernels import beam, upem_batch
 from floria_tpu_torch.options import Options
 from floria_tpu_torch.parallel.mesh import pad_to_multiple
@@ -228,6 +238,42 @@ def test_instance_api_runs_with_jax_and_the_reference_blocked(tmp_path):
     native.baseline_sweep and pack_windows, pad_to_multiple) in a process
     that refuses jax and `floria_tpu`."""
     proc = _run(_INSTANCES_CHILD.format(repo=REPO), cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "JAXFREE_OK"
+
+
+_BENCH_CHILD = _REFUSE + r"""
+import subprocess
+from floria_tpu_torch import bench
+from floria_tpu_torch.scripts import mfu, profile_beam, scaling_bench
+args = bench.make_workload(2, 16, 32)
+assert bench.measure_kernel(args, True, device="cpu") > 0
+assert bench.measure_cpu_baseline(args, True)[0] > 0
+mfu.main(["--model"])
+scaling_bench.measure(2, 16, 32, [2], device="cpu")
+profile_beam.run_case(4, 16, 32, 0, device="cpu")
+for name in ("floria_tpu_torch.bench",
+             "floria_tpu_torch.scripts.multihost_bench"):
+    # Without a card the entry points raise and print nothing.
+    proc = subprocess.run([sys.executable, "-m", name], cwd={repo!r},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and not proc.stdout, (name, proc.stdout)
+    assert "is_available() is False" in proc.stderr, proc.stderr[-2000:]
+""" + _UNLOADED + r"""
+print("JAXFREE_OK")
+"""
+
+
+def test_bench_and_measurement_scripts_run_with_jax_and_the_reference_blocked(
+        tmp_path):
+    """floria_tpu_torch.bench's kernel and baseline measurements, mfu's
+    model, scaling_bench and profile_beam on the CPU in a process that
+    refuses jax and `floria_tpu`; `python -m` of the bench and of
+    multihost_bench on a host without a card exits non-zero and prints
+    nothing on stdout."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = _run(_BENCH_CHILD.format(repo=REPO), cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "JAXFREE_OK"
 
@@ -520,10 +566,10 @@ def test_cuda_build_runs_once_under_two_processes(tmp_path):
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
-    """chip_smoke.py reaches the simulator, stage timers and pipeline
-    through the port's modules and keeps its own copy of bench.py's
-    sweep workload: its third-party imports are numpy, torch and the
-    port."""
+    """chip_smoke.py reaches the simulator, stage timers, pipeline and
+    bench.py's workload and measurements through the port's modules
+    (`floria_tpu_torch.bench`, `scripts.multihost_bench`): its
+    third-party imports are numpy, torch and the port."""
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         smoke = {m.split(".")[0] for m in _imported_modules(
             ast.parse(fh.read()))}
@@ -532,21 +578,26 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
 
 
 def test_chip_smoke_ecoli2_is_bench_config():
+    """The e2e communities of floria_tpu_torch.bench (chip_smoke.py's
+    `ecoli2` and the bench phase's) are bench.py's, field for field."""
     import bench
-    import chip_smoke
+    from floria_tpu_torch import bench as port_bench
 
-    cfg, tag = bench._e2e_config(False)
-    assert tag == "ecoli2"
-    want = dataclasses.asdict(cfg)
-    assert {k: want[k] for k in chip_smoke.ECOLI2} == chip_smoke.ECOLI2
-    from floria_tpu_torch.sim.simulate import SimConfig
-    assert dataclasses.asdict(SimConfig(**chip_smoke.ECOLI2)) == want
+    for quick, tag in ((False, "ecoli2"), (True, "quick2")):
+        want, want_tag = bench._e2e_config(quick)
+        got, got_tag = port_bench._e2e_config(quick)
+        assert got_tag == want_tag == tag
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_chip_smoke_sweep_workload_is_bench_workload():
+    """chip_smoke.py's sweep workload is floria_tpu_torch.bench's
+    make_workload, which equals bench.py's."""
     import bench
     import chip_smoke
+    from floria_tpu_torch import bench as port_bench
 
+    assert chip_smoke.make_workload is port_bench.make_workload
     for got, want in zip(chip_smoke.make_workload(3, 40, 256, seed=4),
                          bench.make_workload(3, 40, 256, seed=4)):
         assert got.dtype == want.dtype and np.array_equal(got, want)
@@ -554,27 +605,41 @@ def test_chip_smoke_sweep_workload_is_bench_workload():
 
 def test_chip_smoke_multi_community_is_multihost_bench_config(
         tmp_path, monkeypatch):
-    """The parallel phase's community is scripts/multihost_bench.py's
-    `build_sim` (BASELINE.json config #5), contig for contig."""
-    import chip_smoke
+    """The parallel phase's community (floria_tpu_torch.scripts.
+    multihost_bench `build_sim`) is scripts/multihost_bench.py's
+    (BASELINE.json config #5), contig for contig, at its default
+    contig count."""
     from floria_tpu.sim import simulate as ref_sim
+    from floria_tpu_torch.scripts import multihost_bench as port_mh
+    from floria_tpu_torch.sim import simulate as port_sim
 
     monkeypatch.syspath_prepend(os.path.join(REPO, "scripts"))
     import multihost_bench
 
-    seen = []
+    seen, port_seen = [], []
     monkeypatch.setattr(ref_sim, "simulate_multi",
                         lambda cfgs, base: seen.extend(cfgs))
+    monkeypatch.setattr(port_sim, "simulate_multi",
+                        lambda cfgs, base: port_seen.extend(cfgs))
     multihost_bench.build_sim(7, str(tmp_path))
-    assert [dataclasses.asdict(c) for c in chip_smoke.multi_configs(7)] \
+    port_mh.build_sim(7, str(tmp_path))
+    assert [dataclasses.asdict(c) for c in port_seen] \
         == [dataclasses.asdict(c) for c in seen]
+    assert len(seen) == 7
+    with open(multihost_bench.__file__) as fh:
+        tree = ast.parse(fh.read())
+    (default,) = [kw.value.value for node in ast.walk(tree)
+                  if isinstance(node, ast.Call) and node.args
+                  and isinstance(node.args[0], ast.Constant)
+                  and node.args[0].value == "--contigs"
+                  for kw in node.keywords if kw.arg == "default"]
+    assert port_mh.CONTIGS == default == 500
 
 
 def test_simulate_multi_and_sequence_packing_match_the_reference(
         tmp_path):
     """The port's simulate_multi (with its vectorized BAM sequence
     packing) writes the reference's bytes."""
-    import chip_smoke
     from floria_tpu.sim import bamwrite as ref_bw
     from floria_tpu.sim import simulate as ref_sim
     from floria_tpu_torch.sim import bamwrite as port_bw
@@ -585,7 +650,9 @@ def test_simulate_multi_and_sequence_packing_match_the_reference(
         for alphabet in (range(256), b"ACGTNacgtn=MRSVWYHKDB"):
             seq = bytes(rng.choice(list(alphabet), n).astype(np.uint8))
             assert port_bw._pack_seq(seq) == ref_bw._pack_seq(seq)
-    cfgs = chip_smoke.multi_configs(2)
+    from floria_tpu_torch.scripts.multihost_bench import multi_configs
+
+    cfgs = multi_configs(2)
     ref_sim.simulate_multi([ref_sim.SimConfig(**dataclasses.asdict(c))
                             for c in cfgs], str(tmp_path / "ref"))
     port_sim.simulate_multi(cfgs, str(tmp_path / "port"))
