@@ -81,6 +81,24 @@ each; any failure raises (exit code != 0):
                 inputs and every output file held to the JAX CLI's
                 sha256 in tests/data/north_star_golden.json; seconds and
                 kernel launches per config;
+ 7f. oracle (run right after 7b) - the port's independent oracle
+                pipeline (floria_tpu_torch.oracle: host numpy, scipy's LP,
+                the faithful C++ beam; no kernel, a launch fails the
+                phase) on this host's CPU: (a) on long2, long3, paired2,
+                supp2 and hybrid with the Options the CLI makes of their
+                flags, its vartigs, haplosets, vartig_info and ploidy row
+                byte-equal to phase 7b's card outputs (the contig
+                directory substituted), long3's also to
+                tests/data/long3_oracle.json (the JAX oracle's); (b)
+                floria_tpu_torch.bench's measure_baseline_e2e on `quick2`
+                (the real subprocess of
+                floria_tpu_torch/scripts/oracle_e2e_baseline.py, pinned
+                to one core, CUDA_VISIBLE_DEVICES="") into a record under
+                the run's temporary directory, after the port's
+                pipeline.run with the bench's Options on the card: its
+                line printed with this card's nvidia-smi line and the
+                host's CPU, no CUDA initialised in the child, its texts
+                and phased-read count equal to the card run's;
  7c. config4  - BASELINE.json config #4, the 5-strain community (300 kbp,
                 9,000 SNPs, `-p 6 -s 3`) at full size: three CLI runs in
                 this process (first, second, traced), each held to the
@@ -1463,6 +1481,7 @@ def parity_long3(tmp):
     """The port's CLI on long3 against the oracle pipeline's bytes
     (tests/data/long3_oracle.json, written and checked against
     tests/oracle_pipeline.py by tests/test_torch_pipeline.py)."""
+    from floria_tpu_torch.oracle.pipeline import read_texts
     from floria_tpu_torch.sim.simulate import SimConfig, simulate
 
     with open(GOLDEN_LONG3) as fh:
@@ -1476,18 +1495,10 @@ def parity_long3(tmp):
                                      "from the golden record's input")
     out_dir = os.path.join(tmp, "long3_out")
     run_cli(sim_dir, out_dir, extra=golden["cli_args"])
-    contig = golden["sim_config"]["contig_name"]
-    cdir = os.path.join(out_dir, contig)
-    names = {"vartigs": f"{contig}.vartigs",
-             "haplosets": f"{contig}.haplosets", "info": "vartig_info.txt"}
-    for key, name in names.items():
-        with open(os.path.join(cdir, name)) as fh:
-            if fh.read().replace(cdir, "<cdir>") != golden["outputs"][key]:
-                raise AssertionError(f"long3 {name} differs from the "
-                                     "oracle")
-    with open(os.path.join(out_dir, "contig_ploidy_info.tsv")) as fh:
-        if fh.read().splitlines()[-1] + "\n" != golden["outputs"]["ploidy"]:
-            raise AssertionError("long3 ploidy row differs from the oracle")
+    got = read_texts(out_dir, golden["sim_config"]["contig_name"])
+    differ = sorted(k for k, v in golden["outputs"].items() if got[k] != v)
+    if differ:
+        raise AssertionError(f"long3 {differ} differ from the oracle")
     emit({"phase": "parity", "config": "long3",
           "byte_equal": sorted(golden["outputs"])})
 
@@ -1592,6 +1603,108 @@ def north_star_phase(tmp, device="cuda:0"):
         hold_decisions(name, sweep_digests(sweeps.sweeps), sim_dir)
         dirs[name] = (sim_dir, out_dir)
     return dirs
+
+
+# tests/test_pipeline_oracle.py's configs and its hybrid case: phase
+# north_star runs each with the oracle tests' flags.
+ORACLE_CONFIGS = ("long2", "long3", "paired2", "supp2", "hybrid")
+
+
+def case_options(entry, sim_dir, opts_dir):
+    """The Options the port's CLI makes of a golden entry's flags (its
+    parser and options_from_args, with -o `opts_dir`, where they write
+    cmd.log and the ploidy header)."""
+    from floria_tpu_torch import cli
+
+    argv = ["-b", os.path.join(sim_dir, "sim.bam"),
+            "-v", os.path.join(sim_dir, "sim.vcf"),
+            "-r", os.path.join(sim_dir, "sim.fa"), "-o", opts_dir,
+            "--overwrite", *case_args(entry, sim_dir)]
+    return cli.options_from_args(cli.build_parser().parse_args(argv))
+
+
+def hold_oracle_configs(tmp, north_star, names=ORACLE_CONFIGS):
+    """Phase oracle (a): the port's oracle pipeline on the host's CPU on
+    each config of `names`, with the Options the CLI makes of its flags;
+    its four texts must equal the CLI run's (phase north_star's
+    `north_star[name]` = (sim_dir, out_dir)) byte for byte, the contig
+    directory written as oracle.pipeline.CDIR, and long3's also
+    tests/data/long3_oracle.json's (the JAX oracle's). The oracle runs no
+    kernel: a launch fails the phase."""
+    from floria_tpu_torch import oracle
+    from floria_tpu_torch.kernels import _build
+    from floria_tpu_torch.oracle.pipeline import read_texts
+
+    golden = load_north_star()["configs"]
+    with open(GOLDEN_LONG3) as fh:
+        long3 = json.load(fh)["outputs"]
+    for name in names:
+        entry = golden[name]
+        sim_dir, out_dir = north_star[name]
+        contig = entry["sim_config"]["contig_name"]
+        opts = case_options(entry, sim_dir, os.path.join(tmp, "oracle_opts",
+                                                         name))
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        texts, _phased, seconds = oracle.run_contig(opts, contig,
+                                                    device="cpu")
+        wall = time.perf_counter() - t0
+        if _build.LAUNCHES:
+            raise AssertionError(f"oracle: {name} launched "
+                                 f"{dict(_build.LAUNCHES)}")
+        got = read_texts(out_dir, contig)
+        differ = sorted(k for k in texts if texts[k] != got[k])
+        if differ:
+            raise AssertionError(f"oracle: {name} {differ} differ from the "
+                                 "port's CLI run")
+        if name == "long3" and texts != long3:
+            raise AssertionError("oracle: long3 differs from "
+                                 "tests/data/long3_oracle.json")
+        emit({"phase": "oracle", "config": name,
+              "byte_equal_to_cli": sorted(texts),
+              "equal_to_jax_oracle_golden": name == "long3",
+              "oracle_s": wall, "stages_s": seconds})
+
+
+def oracle_baseline_quick2(tmp, device="cuda:0"):
+    """Phase oracle (b): floria_tpu_torch.bench's measure_baseline_e2e on
+    `quick2` (its real subprocess, pinned to one core, no card visible)
+    into a record under `tmp`, after the port's pipeline.run with the
+    bench's Options on `device` on the same inputs. The entry must hold
+    the script's six keys, this card's nvidia-smi line and this host's
+    CPU, no CUDA initialised in the child, and texts equal to the port's
+    run. Returns the entry."""
+    runs = bench.measure_e2e(True, device=device, cache=tmp)
+    _cfg, sim_dir = bench.e2e_inputs(True, tmp)
+    record = os.path.join(tmp, "BASELINE_E2E.json")
+    port_out = os.path.join(sim_dir, "out")
+    t0 = time.perf_counter()
+    entry = bench.measure_baseline_e2e(True, force=True, cache=tmp,
+                                       record=record, port_out=port_out)
+    wall = time.perf_counter() - t0
+    emit({"phase": "oracle", "config": "quick2", "baseline_e2e": entry,
+          "wall_s": wall, "port_e2e_s": runs[0][1], "card": CARD})
+    with open(record) as fh:
+        tags = sorted(json.load(fh))
+    want_keys = {"baseline_e2e_reads_per_sec", "baseline_e2e_seconds",
+                 "baseline_e2e_reads", "baseline_e2e_ingest_seconds",
+                 "baseline_e2e_phase_seconds", "pinned_single_core"}
+    if tags != ["quick2"] or not want_keys <= set(entry):
+        raise AssertionError(f"oracle: record {tags}, entry {sorted(entry)}")
+    if entry["card"] != CARD or not entry["cpu"]:
+        raise AssertionError(f"oracle: entry names {entry['card']!r} "
+                             f"({entry['cpu']!r}), nvidia-smi {CARD!r}")
+    if entry["cuda_initialized"] is not False:
+        raise AssertionError("oracle: the baseline's process initialised "
+                             "CUDA")
+    equal = entry["outputs_equal_to_port"]
+    if len(equal) != 4 or not all(equal.values()):
+        raise AssertionError("oracle: quick2's oracle texts differ from the "
+                             f"port's run: {equal}")
+    if entry["baseline_e2e_reads"] != runs[0][2]:
+        raise AssertionError(f"oracle: {entry['baseline_e2e_reads']} "
+                             f"phased reads, the port's run {runs[0][2]}")
+    return entry
 
 
 class SweepCounter:
@@ -2637,6 +2750,8 @@ def main(argv=None) -> None:
         del ecoli2
         parity_long3(tmp)
         north_star = north_star_phase(tmp)
+        hold_oracle_configs(tmp, north_star)
+        oracle_baseline_quick2(tmp)
         _eval, climbs, config4_runs = config4_phase(tmp)
         config4_k6, k6_err, climb_err = upem_climb_phase(climbs)
         del climbs

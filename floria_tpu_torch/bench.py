@@ -4,6 +4,7 @@ against a measured single-core CPU baseline, plus an end-to-end metric
 
     python -m floria_tpu_torch.bench [--quick] [--no-e2e] [--assert-floors]
                                      [--cache-dir DIR]
+                                     [--measure-baseline-e2e]
 
 Kernel metric (`value`): unique (read, block) insertions per second
 through one mixed-ploidy beam dispatch (K1, `csrc/beam_scan.cu`): G
@@ -27,8 +28,15 @@ outputs), phased reads per second: the first run in the process, the
 best of two warm repeats, and one fresh `python -m floria_tpu_torch.cli`
 process. The simulated input is cached under --cache-dir
 (`.bench_cache/torch/` by default). `e2e_vs_baseline` divides by the
-single-core oracle pipeline recorded in BASELINE_E2E.json on another
-host (`baseline_e2e_source`); it is read, not measured here.
+single-core oracle pipeline (`floria_tpu_torch.oracle`, pinned to one
+core by `scripts/oracle_e2e_baseline.py`) on the same community, as
+recorded in the port's own record, floria_tpu_torch/BASELINE_E2E.json,
+with the card line and CPU model of the host that measured it
+(`baseline_e2e_source` names them). The measurement takes minutes, so
+a run reads the record; --measure-baseline-e2e measures it again on
+this host and writes it there, with the oracle's output texts held to
+the port's run on the card. Without a record for the community there is
+no e2e_vs_baseline: no other host's number stands in for it.
 
 It measures on the card only: without one it raises, and no number of
 a CPU run is printed under these keys. It keeps its own session bests
@@ -45,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import platform
 import shutil
 import subprocess
 import sys
@@ -57,6 +66,8 @@ from .device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE = os.path.join(REPO, ".bench_cache", "torch")
+# The e2e denominators measured on the card's host, by community tag.
+RECORD = os.path.join(REPO, "floria_tpu_torch", "BASELINE_E2E.json")
 PLOIDIES = (2, 3, 4, 5)
 BEAM_WIDTH = 10
 # The H100 SXM's HBM rate and its f32 rate outside the tensor cores
@@ -269,16 +280,115 @@ def _options(sim_dir, out_dir):
                    out_dir=out_dir, overwrite=True)
 
 
-def recorded_baseline_e2e(quick):
-    """The single-core oracle-pipeline e2e record of the community from
-    BASELINE_E2E.json (measured on another host; bench.py's
-    --measure-baseline-e2e writes it), or None."""
+def cpu_model() -> str:
+    """This host's CPU: /proc/cpuinfo's `model name`, or where that says
+    nothing (virtual machines may print "unknown") its vendor, family,
+    model, stepping and clock; then the count of CPUs."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if not line.strip():
+                    break  # the first processor's block only
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name", "")
+    if not name or name.lower() == "unknown":
+        name = " ".join(f"{k} {info[k]}" for k in (
+            "vendor_id", "cpu family", "model", "stepping", "cpu MHz")
+            if info.get(k)) or platform.processor() or "unknown"
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def recorded_baseline_e2e(quick, record=RECORD):
+    """The single-core oracle-pipeline e2e entry of the community in the
+    port's record (written by measure_baseline_e2e), or None."""
     _cfg, tag = _e2e_config(quick)
-    path = os.path.join(REPO, "BASELINE_E2E.json")
-    if not os.path.exists(path):
+    if not os.path.exists(record):
         return None
-    with open(path) as fh:
+    with open(record) as fh:
         return json.load(fh).get(tag)
+
+
+def run_oracle_baseline(sim_dir, contig):
+    """`python -m floria_tpu_torch.scripts.oracle_e2e_baseline` on the
+    community in `sim_dir`, with no card visible (the oracle is a
+    single-core CPU program and opens no context on the card). Returns
+    (its JSON line, its ORACLE_CHILD report); raises if it fails or
+    touched CUDA, jax or `floria_tpu`."""
+    from .scripts import oracle_e2e_baseline as script
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "floria_tpu_torch.scripts.oracle_e2e_baseline",
+         sim_dir, contig], env=env, cwd=REPO, capture_output=True,
+        text=True, timeout=7200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"oracle_e2e_baseline exited {proc.returncode}:"
+                           f"\n{proc.stderr[-4000:]}")
+    data = json.loads(proc.stdout.strip().splitlines()[-1])
+    (report,) = [json.loads(ln[len(script.REPORT_PREFIX):])
+                 for ln in proc.stderr.splitlines()
+                 if ln.startswith(script.REPORT_PREFIX)]
+    if report["cuda_initialized"] or report["loaded"]:
+        raise RuntimeError(f"oracle_e2e_baseline touched CUDA or the JAX "
+                           f"package: {report}")
+    return data, report
+
+
+def measure_baseline_e2e(quick, force=False, *, cache=CACHE, record=RECORD,
+                         port_out=None):
+    """Single-core oracle-pipeline e2e denominator (the kernel ratio
+    alone excludes ingest and the join). The measurement is expensive
+    (minutes on one core), so it persists in `record` (the port's
+    committed floria_tpu_torch/BASELINE_E2E.json, keyed by community tag
+    as bench.py's is) and normal runs only read it; with force=True it
+    runs run_oracle_baseline on the community under `cache` and writes
+    the tag's entry: the script's six keys, this host's nvidia-smi line
+    (`card`) and CPU model (`cpu`), the child's peak resident bytes (in
+    all and per stage) and `cuda_initialized` (False), and with `port_out` (the output
+    directory of the port's run on the same inputs) `outputs_equal_to_port`,
+    per text of oracle.pipeline.TEXT_FILES whether the oracle's equals
+    the run's."""
+    from .oracle.pipeline import read_texts
+
+    cfg, tag = _e2e_config(quick)
+    if not force:
+        return recorded_baseline_e2e(quick, record)
+    _cfg, sim_dir = e2e_inputs(quick, cache)
+    data, report = run_oracle_baseline(sim_dir, cfg.contig_name)
+    data.update(card=nvidia_smi_line(), cpu=cpu_model(),
+                peak_host_bytes=report["peak_rss_bytes"],
+                peak_host_bytes_by_stage=report["peak_rss_bytes_by_stage"],
+                cuda_initialized=report["cuda_initialized"])
+    if port_out is not None:
+        oracle = read_texts(os.path.join(sim_dir, "oracle_out"),
+                            cfg.contig_name)
+        port = read_texts(port_out, cfg.contig_name)
+        data["outputs_equal_to_port"] = {k: v is not None and v == port[k]
+                                         for k, v in oracle.items()}
+    rec = {}
+    if os.path.exists(record):
+        with open(record) as fh:
+            rec = json.load(fh)
+    rec[tag] = data
+    with open(record, "w") as fh:
+        json.dump(rec, fh, indent=1)
+        fh.write("\n")
+    return data
+
+
+def baseline_e2e_source(record, entry, measured: bool) -> str:
+    """Where e2e_vs_baseline's denominator comes from: the record, the
+    card line and CPU of the host that measured it, and whether this run
+    measured it."""
+    return (f"{os.path.relpath(record, REPO)}: the oracle pipeline pinned "
+            f"to one core on the host of {entry['card']} "
+            f"(CPU {entry['cpu']}); "
+            + ("measured in this run" if measured
+               else "recorded by an earlier --measure-baseline-e2e run"))
 
 
 def measure_e2e(quick, repeat=False, *, device, cache=CACHE):
@@ -424,10 +534,12 @@ def _check_stage_regressions(result, path=None):
         result["stage_regressions"] = regressions
 
 
-def collect(quick, skip_e2e, *, device, cache=CACHE, built_at_start=True):
+def collect(quick, skip_e2e, *, device, cache=CACHE, built_at_start=True,
+            measure_baseline=False, record=RECORD):
     """Every measurement of one bench run on `device`, as the result
     dict (without the session-best checks). main() calls it on the card
-    only."""
+    only. With measure_baseline the e2e denominator is measured on this
+    host into `record` (measure_baseline_e2e), else read from it."""
     dev = resolve_device(device)
     G, R, S = (8, 64, 128) if quick else (32, 256, 256)
     args = make_workload(G, R, S)
@@ -469,18 +581,19 @@ def collect(quick, skip_e2e, *, device, cache=CACHE, built_at_start=True):
             result["e2e_warm_reads_per_sec"] = round(w_rps, 1)
             result["e2e_warm_seconds"] = round(w_s, 1)
             result["e2e_warm_stages"] = w_stages
-        base_e2e = recorded_baseline_e2e(quick)
+        _cfg, sim_dir = e2e_inputs(quick, cache)
+        base_e2e = measure_baseline_e2e(
+            quick, force=measure_baseline, cache=cache, record=record,
+            port_out=os.path.join(sim_dir, "out"))
         if base_e2e:
             denom_e2e = base_e2e["baseline_e2e_reads_per_sec"]
             best_rps = (result.get("e2e_warm_reads_per_sec")
                         or result["e2e_reads_per_sec"])
             result["e2e_vs_baseline"] = round(best_rps / denom_e2e, 2)
-            result["baseline_e2e_reads_per_sec"] = denom_e2e
-            result["baseline_e2e_source"] = (
-                "BASELINE_E2E.json: the oracle pipeline pinned to one core, "
-                "recorded on another host; not measured in this run")
+            result["baseline_e2e_reads_per_sec"] = round(denom_e2e, 1)
+            result["baseline_e2e_source"] = baseline_e2e_source(
+                record, base_e2e, measure_baseline)
         if not quick:
-            _cfg, sim_dir = e2e_inputs(quick, cache)
             fresh = measure_fresh_process_cold(
                 _options(sim_dir, os.path.join(sim_dir, "out")), device=dev)
             if fresh is not None:
@@ -506,6 +619,11 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-dir", default=CACHE,
                     help="where the simulated e2e communities are kept "
                     "(default: .bench_cache/torch/ in the checkout)")
+    ap.add_argument("--measure-baseline-e2e", action="store_true",
+                    help="measure the single-core oracle-pipeline e2e "
+                    "denominator on this host (minutes) and write it to "
+                    "floria_tpu_torch/BASELINE_E2E.json, instead of reading "
+                    "it there")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("floria_tpu_torch.bench measures on a CUDA card "
@@ -513,7 +631,8 @@ def main(argv=None) -> None:
     # Before any device work: the kernel metric's warm call builds them.
     built = kernels_built()
     result = collect(args.quick, args.no_e2e, device="cuda",
-                     cache=args.cache_dir, built_at_start=built)
+                     cache=args.cache_dir, built_at_start=built,
+                     measure_baseline=args.measure_baseline_e2e)
     regressed = False
     if not args.quick:
         # Quick-config numbers would poison the session bests.

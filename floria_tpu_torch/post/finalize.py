@@ -326,7 +326,7 @@ def separate_broken_haplogroups(parts: List[Set[int]],
     # so ties keep hashmap order — nondeterministic there; a total key
     # is required here because which read CLOSES a segment (and is
     # dropped) depends on scan order when first positions tie. Keep in
-    # sync with tests/oracle_pipeline.py:_separate_broken.
+    # sync with floria_tpu_torch/oracle/pipeline.py:_separate_broken.
     def _scan_key(fid):
         return (frags[fid].first_position, fid)
 

@@ -13,4 +13,5 @@ Measurement scripts, on the card unless asked for `--device cpu`:
 config #5 phased by 1, 2 and 4 processes (`multihost_bench`), K1's
 roofline accounting (`mfu`), blocks/s over shards of the block mesh
 (`scaling_bench`) and the beam dispatch's cost per scan step
-(`profile_beam`)."""
+(`profile_beam`); and on one CPU core, with no card, the oracle
+pipeline's e2e denominator (`oracle_e2e_baseline`)."""

@@ -98,6 +98,15 @@ def test_measure_e2e_quick_matches_jax_pipeline(tmp_path):
     assert _output_hashes(str(sim_dir / "out")) == want["outputs_sha256"]
 
 
+# The six keys of the oracle e2e script's line (scripts/
+# oracle_e2e_baseline.py's and the port's).
+BASELINE_ENTRY = {"baseline_e2e_reads_per_sec": 84.6,
+                  "baseline_e2e_seconds": 131.3, "baseline_e2e_reads": 11111,
+                  "baseline_e2e_ingest_seconds": 32.3,
+                  "baseline_e2e_phase_seconds": 92.7,
+                  "pinned_single_core": True}
+
+
 def _bench_py_result_keys():
     """Every key bench.py puts in its result: the `result = {...}`
     literal's and every `result["..."]` subscript, in any function."""
@@ -143,13 +152,177 @@ def test_collect_fills_every_key(tmp_path, monkeypatch):
             (200.0, 1.0, 200, {"phasing": 0.5})])
     monkeypatch.setattr(bench, "measure_fresh_process_cold",
                         lambda opts, *, device: 3.0)
+    record = tmp_path / "record.json"
+    record.write_text(json.dumps({"ecoli2": dict(
+        BASELINE_ENTRY, card="NVIDIA H100 80GB HBM3, 700.00 W",
+        cpu="Some CPU")}))
     result = bench.collect(False, False, device="cpu", cache=str(tmp_path),
-                           built_at_start=False)
+                           built_at_start=False, record=str(record))
     assert set(bench.RESULT_KEYS) - set(result) == {"card", "device"}
     assert result["vs_baseline"] == 100.0
     assert result["e2e_cold_kind"] == "first-contact-nvcc-build"
     assert result["e2e_vs_baseline"] == round(200.0 / 84.6, 2)
+    assert result["baseline_e2e_reads_per_sec"] == 84.6
     assert result["e2e_warm_seconds"] == 1.0
+    source = result["baseline_e2e_source"]
+    assert os.path.relpath(str(record), REPO) in source
+    assert "NVIDIA H100 80GB HBM3, 700.00 W" in source
+    assert "Some CPU" in source and "earlier" in source
+
+
+def _stub_collect_inputs(monkeypatch, tmp_path, quick):
+    """collect's measurements stubbed (their numbers come only from a
+    card), its e2e community under tmp_path."""
+    cfg, tag = bench._e2e_config(quick)
+    monkeypatch.setattr(bench, "measure_kernel",
+                        lambda args, quick, *, device: 1000.0)
+    monkeypatch.setattr(bench, "measure_realshape_baseline", lambda a: 8.0)
+    monkeypatch.setattr(bench, "measure_cpu_baseline",
+                        lambda args, quick: (10.0, 40.0))
+    monkeypatch.setattr(bench, "e2e_inputs",
+                        lambda quick, cache: (cfg, str(tmp_path / tag)))
+    monkeypatch.setattr(
+        bench, "measure_e2e", lambda quick, repeat, *, device, cache: [
+            (100.0, 2.0, 200, {"phasing": 1.0})])
+    monkeypatch.setattr(bench, "measure_fresh_process_cold",
+                        lambda opts, *, device: 3.0)
+    return cfg, tag
+
+
+def test_without_a_record_there_is_no_e2e_vs_baseline(tmp_path,
+                                                      monkeypatch):
+    """No entry for the community in the record: the result has no
+    e2e_vs_baseline and no denominator, and no other host's number
+    stands in."""
+    _stub_collect_inputs(monkeypatch, tmp_path, True)
+    for record in (tmp_path / "none.json", tmp_path / "other.json"):
+        if record.name == "other.json":
+            record.write_text(json.dumps({"ecoli2": BASELINE_ENTRY}))
+        result = bench.collect(True, False, device="cpu",
+                               cache=str(tmp_path), record=str(record))
+        assert result["e2e_reads_per_sec"] == 100.0
+        assert not {"e2e_vs_baseline", "baseline_e2e_reads_per_sec",
+                    "baseline_e2e_source"} & set(result)
+
+
+def _sha256(path):
+    return chip_smoke._sha256(path) if os.path.exists(path) else None
+
+
+def test_measure_baseline_e2e_writes_only_its_record(tmp_path, monkeypatch):
+    """With the subprocess stubbed, measure_baseline_e2e writes the tag's
+    entry (the six keys, the card line, the CPU, the child's figures and
+    the comparison with the port's run) into the record it is given,
+    keeps the record's other tags, and leaves BASELINE_E2E.json and the
+    port's committed record as they were."""
+    from floria_tpu_torch.oracle import pipeline as oracle_pipeline
+
+    protected = [os.path.join(REPO, "BASELINE_E2E.json"), bench.RECORD]
+    before = [_sha256(p) for p in protected]
+    cfg, tag = _stub_collect_inputs(monkeypatch, tmp_path, True)
+    sim_dir = str(tmp_path / tag)
+    texts = {"vartigs": f">HAP0.{oracle_pipeline.CDIR}\n0\n",
+             "haplosets": f">HAP0.{oracle_pipeline.CDIR}\nr\t1\t1\n",
+             "info": "", "ploidy": f"{cfg.contig_name}\t1.000\n"}
+    oracle_pipeline.write_texts(texts, os.path.join(sim_dir, "oracle_out"),
+                                cfg.contig_name)
+    port_out = str(tmp_path / "port_out")
+    oracle_pipeline.write_texts(dict(texts, info="x"), port_out,
+                                cfg.contig_name)
+    calls = []
+    monkeypatch.setattr(bench, "run_oracle_baseline", lambda d, c: (
+        calls.append((d, c)) or (dict(BASELINE_ENTRY), {
+            "cuda_initialized": False, "loaded": [],
+            "peak_rss_bytes": 1 << 20,
+            "peak_rss_bytes_by_stage": {"ingest": 1 << 19}})))
+    monkeypatch.setattr(bench, "nvidia_smi_line",
+                        lambda: "NVIDIA H100 80GB HBM3, 700.00 W")
+    record = tmp_path / "record.json"
+    record.write_text(json.dumps({"ecoli2": {"kept": 1}}))
+    entry = bench.measure_baseline_e2e(True, force=True, cache=str(tmp_path),
+                                       record=str(record), port_out=port_out)
+    assert calls == [(sim_dir, cfg.contig_name)]
+    assert entry == dict(
+        BASELINE_ENTRY, card="NVIDIA H100 80GB HBM3, 700.00 W",
+        cpu=bench.cpu_model(), peak_host_bytes=1 << 20,
+        peak_host_bytes_by_stage={"ingest": 1 << 19},
+        cuda_initialized=False, outputs_equal_to_port={
+            "vartigs": True, "haplosets": True, "info": False,
+            "ploidy": True})
+    assert json.loads(record.read_text()) == {"ecoli2": {"kept": 1},
+                                              tag: entry}
+    assert bench.measure_baseline_e2e(True, record=str(record)) == entry
+    assert [_sha256(p) for p in protected] == before
+
+
+def test_recorded_baseline_e2e_reads_the_ports_record(monkeypatch):
+    """recorded_baseline_e2e opens the port's record, never the root
+    BASELINE_E2E.json, and the committed record's `ecoli2` entry was
+    measured on a card's host."""
+    assert bench.RECORD == os.path.join(REPO, "floria_tpu_torch",
+                                        "BASELINE_E2E.json")
+    opened = []
+    real_open = builtins.open
+
+    def spy(path, *a, **kw):
+        opened.append(os.path.abspath(str(path)))
+        return real_open(path, *a, **kw)
+
+    monkeypatch.setattr(builtins, "open", spy)
+    entry = bench.recorded_baseline_e2e(False)
+    assert opened == [bench.RECORD]
+    assert set(BASELINE_ENTRY) <= set(entry)
+    assert entry["card"].startswith("NVIDIA") and entry["cpu"]
+    assert entry["cuda_initialized"] is False
+    assert bench.recorded_baseline_e2e(True) is None
+
+
+@pytest.mark.parametrize("flag", [[], ["--measure-baseline-e2e"]])
+def test_measure_baseline_e2e_flag_parses(flag, monkeypatch, capsys):
+    """--measure-baseline-e2e reaches collect as measure_baseline=True
+    (the measurement forced, as bench.py forces it)."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(bench, "kernels_built", lambda: True)
+    monkeypatch.setattr(bench, "collect", lambda quick, skip_e2e, **kw: (
+        seen.append(kw) or {"value": 1.0}))
+    bench.main(["--quick", *flag])
+    assert [kw["measure_baseline"] for kw in seen] == [bool(flag)]
+    assert json.loads(capsys.readouterr().out) == {"value": 1.0}
+
+
+def test_oracle_e2e_baseline_script_on_a_tiny_contig(tmp_path):
+    """The real script (`python -m floria_tpu_torch.scripts.
+    oracle_e2e_baseline`, one core, no card visible) on a tiny simulated
+    contig: its line holds the six keys, its process loaded neither jax
+    nor `floria_tpu` and initialised no CUDA, and its texts equal the
+    port's pipeline.run with the same Options."""
+    from floria_tpu_torch.oracle.pipeline import read_texts
+    from floria_tpu_torch.pipeline import run
+    from floria_tpu_torch.sim.simulate import SimConfig, simulate
+
+    cfg = SimConfig(contig_len=20_000, num_strains=2, num_snps=100,
+                    coverage_per_strain=8.0, read_length=3_000,
+                    read_length_sd=400.0, error_rate=0.01, seed=7)
+    sim_dir = str(tmp_path)
+    simulate(cfg, sim_dir)
+    data, report = bench.run_oracle_baseline(sim_dir, cfg.contig_name)
+    assert set(data) == set(BASELINE_ENTRY)
+    assert data["pinned_single_core"] is True
+    assert data["baseline_e2e_reads"] > 0
+    assert data["baseline_e2e_reads_per_sec"] == pytest.approx(
+        data["baseline_e2e_reads"] / data["baseline_e2e_seconds"])
+    assert report["loaded"] == [] and report["cuda_initialized"] is False
+    assert report["peak_rss_bytes"] > 50 << 20
+    assert sorted(report["peak_rss_bytes_by_stage"]) == ["ingest", "phase",
+                                                          "texts"]
+    assert max(v for v in report["peak_rss_bytes_by_stage"].values()
+               if v is not None) <= report["peak_rss_bytes"]
+    out_dir = str(tmp_path / "out")
+    run(bench._options(sim_dir, out_dir), device="cpu")
+    texts = read_texts(str(tmp_path / "oracle_out"), cfg.contig_name)
+    assert all(texts.values())
+    assert texts == read_texts(out_dir, cfg.contig_name)
 
 
 @pytest.mark.parametrize("module", [

@@ -104,17 +104,18 @@ def test_cli_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert (contig_dir / "sim_contig.vartigs").stat().st_size > 0
 
 
-# The four measurement scripts also import numpy and torch.
-MEASUREMENT_SCRIPTS = ["mfu", "multihost_bench", "profile_beam",
-                       "scaling_bench"]
+# The measurement scripts also import numpy and torch.
+MEASUREMENT_SCRIPTS = ["mfu", "multihost_bench", "oracle_e2e_baseline",
+                       "profile_beam", "scaling_bench"]
 
 
 def test_scripts_import_only_the_port_and_the_standard_library():
     """The four host tools under floria_tpu_torch/scripts/ import the
     standard library and the port's own modules (relative imports that
     stay inside the package), nothing else: no jax, no `floria_tpu`,
-    not even numpy directly; the four measurement scripts beside them
-    add numpy and torch, nothing else."""
+    not even numpy directly; the measurement scripts beside them (the
+    oracle's e2e baseline among them) add numpy and torch, nothing
+    else."""
     root = os.path.join(PKG, "scripts")
     scripts = sorted(f[:-3] for f in os.listdir(root)
                      if f.endswith(".py") and f != "__init__.py")
@@ -274,6 +275,41 @@ def test_bench_and_measurement_scripts_run_with_jax_and_the_reference_blocked(
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     proc = _run(_BENCH_CHILD.format(repo=REPO), cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "JAXFREE_OK"
+
+
+_ORACLE_CHILD = _REFUSE + r"""
+from floria_tpu_torch import oracle
+from floria_tpu_torch.options import Options
+from floria_tpu_torch.scripts import oracle_e2e_baseline
+from floria_tpu_torch.sim.simulate import SimConfig, simulate
+sim = {sim!r}
+cfg = SimConfig(contig_len=12_000, num_strains=2, num_snps=60,
+                coverage_per_strain=6.0, read_length=2_000,
+                read_length_sd=300.0, error_rate=0.02, seed=21)
+simulate(cfg, sim)
+opts = Options(bam_file=sim + "/sim.bam", vcf_file=sim + "/sim.vcf",
+               reference_fasta=sim + "/sim.fa", epsilon=0.02,
+               block_length=3000, snp_count_filter=10)
+for use_native in (True, False):
+    texts, phased, _s = oracle.run_contig(opts, cfg.contig_name,
+                                          device="cpu",
+                                          use_native=use_native)
+    assert phased[0] and texts["vartigs"], phased
+line, windows = oracle_e2e_baseline.measure(sim, cfg.contig_name)
+assert line["baseline_e2e_reads"] > 0 and len(windows) == 3, line
+""" + _UNLOADED + r"""
+print("JAXFREE_OK")
+"""
+
+
+def test_oracle_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """The port's oracle pipeline (`floria_tpu_torch.oracle`, native and
+    Python beam) and its e2e script's measurement in a process that
+    refuses jax and `floria_tpu`."""
+    proc = _run(_ORACLE_CHILD.format(repo=REPO, sim=str(tmp_path / "sim")),
+                cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.splitlines()[-1] == "JAXFREE_OK"
 

@@ -4,9 +4,11 @@ with -r so the port's realignment path runs. Every output file must be
 byte-identical, except cmd.log. Both sides write to the same path (the
 outputs embed it), one after the other.
 
-tests/data/long3_oracle.json holds the oracle pipeline's bytes for the
-`long3` community, which chip_smoke.py holds the port's CLI to on the
-card (where the oracle's imports are not available). Regenerate it with
+tests/data/long3_oracle.json holds the JAX package's oracle pipeline's
+bytes (tests/oracle_pipeline.py) for the `long3` community: the record
+of the JAX oracle's output, which chip_smoke.py holds the port's CLI
+and the port's own oracle (`floria_tpu_torch.oracle`, which runs on the
+card's host) to. Regenerate it with
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_pipeline.py
 """
