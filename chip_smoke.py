@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (floria_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--ab-inputs PATH]
+    python3 chip_smoke.py --multicard [--repeats N]
 
 It imports the standard library, numpy, torch and the port; nothing of
 jax or of the JAX package `floria_tpu`, and it fails if either is loaded
@@ -136,8 +137,12 @@ each; any failure raises (exit code != 0):
                 dispatch on the kernel sweep's workload, equal to the
                 sweep on cuda:0 alone, both timed; (c) entry.py's
                 dryrun_multichip; (d) the CLI as two ranks
-                (--num-processes 2, the coordinator on localhost, each
-                rank's blocks over every card) against
+                (--num-processes 2, the coordinator on localhost,
+                --device cuda: each rank on cards of its own where the
+                machine has two or more, both on the one card otherwise;
+                each rank's log must name its cards and it may hold a
+                CUDA context on no other; its cards and each card's peak
+                memory are printed) against
                 one process on BASELINE.json config #5's community
                 (scripts/multihost_bench.py `build_sim`: 500 contigs of 60
                 kbp, 2 strains, 300 SNPs, 8x per strain, 6 kbp reads): the
@@ -179,6 +184,22 @@ each; any failure raises (exit code != 0):
 With --ab-inputs it also saves the inputs of every timed K4, K5 and climb
 case, for scripts/torch_kernel_parent_ab.py to time an earlier tree's
 calls on them.
+With --multicard [--repeats N] it runs, instead of the phases above, the
+holds of every sharded path over meshes of 2 and 4 shards (one per card
+where the machine has four, else that many shards of cuda:0): K1 through
+beam_search_sharded at ecoli2's largest dispatch; the CLI (--device cuda
+--num-devices N) on ecoli2, config4 and multi500 (N rounds at 1, 2 and 4
+cards) and on the 12 small configs, each run's sweep held to the JAX
+CLI's (tests/data/sweep_golden.json) and to one card, its bytes to the
+one-card run and, where recorded, to the JAX CLI's hashes;
+phase_instances over each mesh and refine_instances on cuda:1 against
+one card and tests/data/instances_golden.json; dryrun_multichip against
+one card; multi500 as 2 and 4 ranks, each on cards of its own and each
+on every card, against one process. One `multicard_hold` line per hold
+(items compared and differing), one line per measured run (seconds,
+stages, launches, peak bytes per card; for ranks each rank's cards and
+contexts and each card's used memory from nvidia-smi), then a
+`multicard_summary` with the medians; it exits 1 if any hold failed.
 Times are medians of 3 (K4, K6: 20; climbs in `climb_ab`: 5) after one
 warm run of the whole call, wrapper included, CUDA-synchronized
 (`kernel_ms`, the kernel line's `ms`); beside them `kernel_device_ms` is
@@ -211,6 +232,7 @@ import argparse
 import contextlib
 import dataclasses
 import filecmp
+import functools
 import hashlib
 import importlib
 import io
@@ -1070,12 +1092,12 @@ def input_sha256(sim_dir):
 DECISIONS = []
 
 
-def hold_decisions(config, got, sim_dir, run=None):
-    """Phase decisions, for one run (`run` names it beside `config`): its
-    sweeps' block digests (`got`, sweep_digests of what SweepRecorder
-    recorded) held block by block to the JAX CLI's sweep on the same
-    inputs (GOLDEN_SWEEP). Emits and keeps (in DECISIONS) the blocks
-    compared and differing; raises if an input or any block differs."""
+def decision_diff(config, got, sim_dir):
+    """(blocks compared, blocks differing, the first differing (contig,
+    block)s) of one run's sweeps (`got`, sweep_digests of what
+    SweepRecorder recorded) against the JAX CLI's sweep on the same
+    inputs (GOLDEN_SWEEP); raises if the inputs or the phased contigs
+    differ."""
     with open(GOLDEN_SWEEP) as fh:
         want = json.load(fh)["configs"][config]
     if input_sha256(sim_dir) != want["inputs_sha256"]:
@@ -1094,17 +1116,26 @@ def hold_decisions(config, got, sim_dir, run=None):
                if blocks[j:j + 1] != mine[j:j + 1]]
         differing += len(bad)
         first += [(contig, j) for j in bad[:3]]
+    return compared, differing, first[:10]
+
+
+def hold_decisions(config, got, sim_dir, run=None):
+    """Phase decisions, for one run (`run` names it beside `config`): its
+    sweeps' block digests held block by block to the JAX CLI's sweep
+    (`decision_diff`). Emits and keeps (in DECISIONS) the blocks
+    compared and differing; raises if an input or any block differs."""
+    compared, differing, first = decision_diff(config, got, sim_dir)
     if run is not None:
         config = f"{config} {run}"
     rec = {"phase": "decisions", "config": config, "contigs": len(got),
            "blocks_compared": compared, "blocks_differing": differing,
-           "first_differing": first[:10]}
+           "first_differing": first}
     emit(rec)
     DECISIONS.append(rec)
     if differing or not compared:
         raise AssertionError(f"decisions {config}: {differing} of "
                              f"{compared} blocks differ from the JAX "
-                             f"sweep's: {first[:10]}")
+                             f"sweep's: {first}")
     return rec
 
 
@@ -1183,15 +1214,24 @@ def _tree(root):
     return sorted(out)
 
 
+def tree_diff(a, b, files=_tree):
+    """(files compared, [files that differ]) of two output trees (their
+    `files`; cmd.log left out); raises if they hold other files."""
+    names = files(a)
+    if names != files(b):
+        raise AssertionError(f"output files differ: {names} vs "
+                             f"{files(b)}")
+    return len(names), [f for f in names if not filecmp.cmp(
+        os.path.join(a, f), os.path.join(b, f), shallow=False)]
+
+
 def assert_same_tree(a, b, what):
-    files = _tree(a)
-    if files != _tree(b):
-        raise AssertionError(f"{what}: output files differ: {files} vs "
-                             f"{_tree(b)}")
-    for f in files:
-        if not filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
-                           shallow=False):
-            raise AssertionError(f"{what}: {f} differs")
+    try:
+        _n, bad = tree_diff(a, b)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+    if bad:
+        raise AssertionError(f"{what}: {bad[0]} differs")
 
 
 class DispatchRecorder:
@@ -1547,16 +1587,23 @@ def case_args(entry, sim_dir):
     return [a.replace(SIM_MARK, sim_dir) for a in entry["cli_args"]]
 
 
-def assert_golden_outputs(name, out_dir, want):
-    """Raises unless the output tree of a run at `out_dir` hashes to
-    `want`, file by file."""
+def golden_diff(name, out_dir, want):
+    """(files compared, [files whose hash differs]) of the output tree of
+    a run at `out_dir` against `want`, the JAX CLI's hashes; raises if
+    the tree holds other files."""
     got = output_sha256(out_dir, out_dir)
     if sorted(got) != sorted(want):
         raise AssertionError(f"{name}: output files {sorted(got)}, the JAX "
                              f"CLI wrote {sorted(want)}")
-    for f, h in sorted(want.items()):
-        if got[f] != h:
-            raise AssertionError(f"{name}: {f} differs from the JAX CLI's")
+    return len(want), [f for f, h in sorted(want.items()) if got[f] != h]
+
+
+def assert_golden_outputs(name, out_dir, want):
+    """Raises unless the output tree of a run at `out_dir` hashes to
+    `want`, file by file."""
+    _n, bad = golden_diff(name, out_dir, want)
+    if bad:
+        raise AssertionError(f"{name}: {bad[0]} differs from the JAX CLI's")
 
 
 def _sync(device):
@@ -2337,12 +2384,14 @@ def instances_phase(dev, ecoli2):
 
 
 # One rank of the CLI in its own process: the user's entry point, then
-# its launch counts, the seconds of cli.main and its stages, and any jax
-# or `floria_tpu` module it loaded; its sweeps' block digests go to a
-# file.
+# its launch counts, the seconds of cli.main and its stages, the cards on
+# which it holds a CUDA context with its peak allocated bytes on each,
+# and any jax or `floria_tpu` module it loaded; its sweeps' block digests
+# go to a file.
 RANK = r"""
 import json, sys, time
 sys.path.insert(0, {repo!r})
+import torch
 from floria_tpu_torch import cli, timing
 from floria_tpu_torch.kernels import _build
 import chip_smoke
@@ -2352,12 +2401,22 @@ with chip_smoke.SweepRecorder() as rec:
 cli_s = time.perf_counter() - t0
 with open({digests!r}, "w") as fh:
     json.dump(chip_smoke.sweep_digests(rec.sweeps), fh)
+cards = chip_smoke.context_cards()
 print("RANK " + json.dumps({{"launches": dict(_build.LAUNCHES),
     "cli_s": cli_s, "stages_s": dict(timing.STAGE_TIMES),
+    "cards": cards, "peak_bytes": {{str(i): torch.cuda.max_memory_allocated(i)
+                                   for i in cards}},
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "floria_tpu"))
 }}))
 """
+
+
+def context_cards():
+    """The cards on which this process holds a CUDA context (torch's
+    primary context: made on a card's first use), in card order."""
+    return [i for i in range(torch.cuda.device_count())
+            if torch._C._cuda_hasPrimaryContext(i)]
 
 
 def _free_port():
@@ -2368,18 +2427,19 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_ranks(sim_dir, out_dir, nproc, timeout=600):
-    """The port's CLI as `nproc` ranks on the card (the coordinator on
+def run_ranks(sim_dir, out_dir, nproc, timeout=600, device="cuda"):
+    """The port's CLI as `nproc` ranks on `device` (the coordinator on
     localhost), each rank recording its sweeps. Returns (wall seconds,
     [each rank's record: launch counts, seconds in cli.main, stage
-    seconds], the ranks' sweep_digests merged);
-    raises unless every rank exits 0; kills them all on the way out. Each
-    rank writes its output to files beside `out_dir` (a rank blocked on
-    a full pipe would hold the other at the barrier)."""
+    seconds, the cards it holds a context on with its peak bytes on each,
+    the cards its log says it phases on], the ranks' sweep_digests
+    merged); raises unless every rank exits 0; kills them all on the way
+    out. Each rank writes its output to files beside `out_dir` (a rank
+    blocked on a full pipe would hold the other at the barrier)."""
     argv = ["-b", os.path.join(sim_dir, "sim.bam"),
             "-v", os.path.join(sim_dir, "sim.vcf"),
             "-r", os.path.join(sim_dir, "sim.fa"), "-o", out_dir,
-            "--overwrite", "--device", "cuda",
+            "--overwrite", "--device", device,
             "--num-processes", str(nproc),
             "--coordinator", f"127.0.0.1:{_free_port()}"]
     logs = [f"{out_dir}.{nproc}.rank{k}" for k in range(nproc)]
@@ -2403,19 +2463,47 @@ def run_ranks(sim_dir, out_dir, nproc, timeout=600):
     wall = time.perf_counter() - t0
     ranks, digests = [], {}
     for k, (p, log) in enumerate(zip(procs, logs)):
+        with open(log + ".err") as fh:
+            err = fh.read()
         if p.returncode != 0:
-            with open(log + ".err") as fh:
-                raise AssertionError(f"rank {k} of {nproc} exited "
-                                     f"{p.returncode}:\n{fh.read()[-4000:]}")
+            raise AssertionError(f"rank {k} of {nproc} exited "
+                                 f"{p.returncode}:\n{err[-4000:]}")
         with open(log + ".out") as fh:
             rec = json.loads([ln for ln in fh.read().splitlines()
                               if ln.startswith("RANK ")][-1][5:])
         if rec.pop("loaded"):
             raise AssertionError(f"rank {k} loaded jax or floria_tpu")
+        said = [ln.rsplit(" phases on ", 1)[1].rstrip(".")
+                for ln in err.splitlines() if " phases on " in ln]
+        rec["phases_on"] = said[-1].split(", ") if said else None
         ranks.append(rec)
         with open(log + ".digests") as fh:
             digests.update(json.load(fh))
     return wall, ranks, digests
+
+
+def own_cards(k, nproc):
+    """The cards rank k of `nproc` ranks on this host takes from a bare
+    "cuda" (parallel/multihost.py rank_cards, without a cap)."""
+    n = torch.cuda.device_count()
+    return list(range(k, n, nproc)) if nproc <= n else [k % n]
+
+
+def check_rank_cards(ranks, nproc):
+    """Each rank of a bare-"cuda" run logged its own cards
+    (`own_cards`) and holds a context on its first and on no card
+    outside them."""
+    for k, rank in enumerate(ranks):
+        want = own_cards(k, nproc)
+        if rank["phases_on"] != [f"cuda:{i}" for i in want]:
+            raise AssertionError(f"rank {k} of {nproc} phases on "
+                                 f"{rank['phases_on']}, not on cards "
+                                 f"{want}")
+        if want[0] not in rank["cards"] or not set(rank["cards"]) <= \
+                set(want):
+            raise AssertionError(f"rank {k} of {nproc} holds contexts on "
+                                 f"cards {rank['cards']}, its own are "
+                                 f"{want}")
 
 
 def _shared_tree(root):
@@ -2426,25 +2514,19 @@ def _shared_tree(root):
                     and f.count(".") == 2)]
 
 
-def parallel_phase(dev, recorder, tmp):
-    """Phase 8: the parallel layer, two shards on the one card or one
-    shard per card of a machine with more; the unsharded references run
-    on `dev` (cuda:0) alone. Returns (the sharded K1 record, the
-    one-process multi500 run's launch counts)."""
-    from floria_tpu_torch.entry import dryrun_multichip
+def sharded_k1(dev, mesh, dispatch):
+    """K1 through beam_search_sharded over `mesh` at one recorded beam
+    dispatch (DispatchRecorder.beam's entry), against the unsharded K1
+    call on `dev` and the plain scan: every instance's records, scores,
+    live flags and assignment, bitwise. Emits and returns the record:
+    instances compared and differing (an instance differs where any of
+    its arrays differs from either reference), one K1 launch per shard,
+    both calls timed; raises if a shard does not launch K1 once."""
     from floria_tpu_torch.kernels import _build
     from floria_tpu_torch.kernels import beam as tb
-    from floria_tpu_torch.options import Options
     from floria_tpu_torch.parallel.mesh import beam_search_sharded
-    from floria_tpu_torch.phase.local import adaptive_sweep
 
-    n_cards = torch.cuda.device_count()
-    mesh = ([torch.device("cuda", i) for i in range(n_cards)]
-            if n_cards > 1 else [dev] * 2)
-
-    # (a) K1 through the sharded dispatch at phase 4's largest dispatch.
-    (al, wt, nr, ep, npt), P, W, kw, _out = max(
-        recorder.beam, key=lambda b: b[0][0].shape[0])
+    (al, wt, nr, ep, npt), P, W, kw, _out = dispatch
     A, window = kw["max_alleles"], kw["window"]
     al, wt, nr, ep, npt = tb._inputs(al, wt, nr, ep, npt, dev)
 
@@ -2462,35 +2544,57 @@ def parallel_phase(dev, recorder, tmp):
     _build.LAUNCHES.clear()
     got = sharded()
     launches = dict(_build.LAUNCHES)
-    if launches.get("beam_scan", 0) != len(mesh):
+    # The plain scan on the CPU counts no launch.
+    if launches.get("beam_scan", 0) != len(mesh) * (dev.type == "cuda"):
         raise AssertionError(f"sharded K1: {launches} launches for "
                              f"{len(mesh)} shards")
-    S = al.shape[-1]
+    S, G = al.shape[-1], int(al.shape[0])
     win = S if window <= 0 or window >= S else window
     prep = tb._prepare(al, wt, ep, A, P, win, True)
     plain = tb.beam_scan_plain(al, wt, nr, *prep[:2], npt, *prep[2:], P=P,
                                W=W, A=A, window=win)
     plain = (type(plain)(*(x.cpu().numpy() for x in plain)),
              tb.traceback_batch(plain).cpu().numpy())
-    err = 0.0
-    for label, ref in (("unsharded K1", unsharded()), ("plain", plain)):
-        for name, a, b in zip(ref[0]._fields + ("assign",),
-                              (*ref[0], ref[1]), (*got[0], got[1])):
-            e = max_abs_diff(torch.from_numpy(a), torch.from_numpy(b))
-            if e != 0.0 or not np.array_equal(a, b):
-                raise AssertionError(f"sharded K1: {name} differs from "
-                                     f"the {label} (max abs {e})")
-            err = max(err, e)
+    err, bad = 0.0, np.zeros(G, bool)
+    for ref in (unsharded(), plain):
+        for a, b in zip((*ref[0], ref[1]), (*got[0], got[1])):
+            err = max(err, max_abs_diff(torch.from_numpy(a),
+                                        torch.from_numpy(b)))
+            bad |= (a != b).reshape(G, -1).any(axis=1)
     k1 = {"phase": "parallel", "case": "sharded K1 at the ecoli2 dispatch",
           "shards": len(mesh), "cards": len(set(mesh)),
-          "G": int(al.shape[0]), "R": int(al.shape[1]),
-          "S": int(S), "P": P, "launches": launches["beam_scan"],
-          "bitwise_equal": ["unsharded K1", "plain"], "max_abs_err": err,
+          "G": G, "R": int(al.shape[1]),
+          "S": int(S), "P": P, "launches": launches.get("beam_scan", 0),
+          "held_to": ["unsharded K1", "plain"], "compared": G,
+          "differing": int(bad.sum()), "max_abs_err": err,
           "cluster_width_shard": tb.cluster_width(
-              -(-int(al.shape[0]) // len(mesh)), mesh[-1]),
+              -(-G // len(mesh)), mesh[-1]),
           "sharded_ms": timed(sharded) * 1e3,
           "unsharded_ms": timed(unsharded) * 1e3}
     emit(k1)
+    return k1
+
+
+def parallel_phase(dev, recorder, tmp):
+    """Phase 8: the parallel layer, two shards on the one card or one
+    shard per card of a machine with more; the unsharded references run
+    on `dev` (cuda:0) alone. Returns (the sharded K1 record, the
+    one-process multi500 run's launch counts)."""
+    from floria_tpu_torch.entry import dryrun_multichip
+    from floria_tpu_torch.kernels import _build
+    from floria_tpu_torch.options import Options
+    from floria_tpu_torch.phase.local import adaptive_sweep
+
+    n_cards = torch.cuda.device_count()
+    mesh = ([torch.device("cuda", i) for i in range(n_cards)]
+            if n_cards > 1 else [dev] * 2)
+
+    # (a) K1 through the sharded dispatch at phase 4's largest dispatch.
+    k1 = sharded_k1(dev, mesh, max(recorder.beam,
+                                   key=lambda b: b[0][0].shape[0]))
+    if k1["differing"]:
+        raise AssertionError(f"sharded K1: {k1['differing']} of "
+                             f"{k1['compared']} instances differ: {k1}")
 
     # (b) The sweep through the sharded dispatch.
     blocks = workload_blocks()
@@ -2540,6 +2644,8 @@ def parallel_phase(dev, recorder, tmp):
                        run=None if nproc == 1 else "two ranks")
         for k, rank in enumerate(ranks):
             assert_launches(f"rank {k} of {nproc}", rank["launches"])
+        if nproc > 1:
+            check_rank_cards(ranks, nproc)
         kept = f"{out_dir}_{nproc}"
         shutil.move(out_dir, kept)
         runs[nproc] = kept
@@ -2549,6 +2655,9 @@ def parallel_phase(dev, recorder, tmp):
               "processes": nproc, "wall_s": wall,
               "rank_launches": [r["launches"] for r in ranks],
               "rank_cli_s": [r["cli_s"] for r in ranks],
+              "rank_phases_on": [r["phases_on"] for r in ranks],
+              "rank_context_cards": [r["cards"] for r in ranks],
+              "rank_peak_bytes_per_card": [r["peak_bytes"] for r in ranks],
               "rank_stages_s": [r["stages_s"] for r in ranks]})
     files = _shared_tree(runs[1])
     if files != _shared_tree(runs[2]):
@@ -2653,6 +2762,434 @@ def bench_phase(tmp):
     return result
 
 
+# --multicard: every sharded path of the port on a machine with several
+# cards (each mesh of 2 and 4 shards one card per shard; on one card, that
+# many shards of cuda:0, which rehearses the same code), held to one card
+# and to the JAX package's golden records, and measured.
+HOLDS = []
+
+
+def hold(name, fn, **labels):
+    """One hold: fn() -> (items compared, items differing). Emits and
+    keeps (in HOLDS) its counts; an exception is kept as a failed hold
+    and the run goes on."""
+    try:
+        compared, differing = fn()
+        error = None
+    except Exception as e:  # kept and reported; the run fails at its end
+        compared = differing = None
+        error = f"{type(e).__name__}: {e}"[:3000]
+    rec = {"phase": "multicard_hold", "hold": name, **labels,
+           "compared": compared, "differing": differing,
+           "ok": error is None and compared > 0 and differing == 0,
+           "error": error}
+    emit(rec)
+    HOLDS.append(rec)
+    return rec
+
+
+def mesh_of(shards):
+    """A block mesh of `shards` shards: cards 0..shards-1, or that many
+    shards of cuda:0 on a machine with fewer cards."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", k if shards <= n else 0)
+            for k in range(shards)]
+
+
+def mesh_cli(shards):
+    """(--device, extra flags) of the CLI for mesh_of(shards): a bare
+    cuda with --num-devices, as a user asks for several cards."""
+    if shards == 1:
+        return "cuda:0", []
+    if shards <= torch.cuda.device_count():
+        return "cuda", ["--num-devices", str(shards)]
+    return ",".join(["cuda:0"] * shards), []
+
+
+def sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_run(label, sim_dir, out_dir, shards, flags=(), record=False):
+    """One in-process CLI run over mesh_of(shards). Returns (record:
+    seconds, stages, launches, peak allocated bytes per card; the
+    sweeps' block digests; the largest K1 dispatch when `record`)."""
+    from floria_tpu_torch import timing
+    from floria_tpu_torch.kernels import _build
+
+    device, extra = mesh_cli(shards)
+    n = torch.cuda.device_count()
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+    _build.LAUNCHES.clear()
+    with SweepRecorder() as sweeps, contextlib.ExitStack() as stack:
+        beams = stack.enter_context(DispatchRecorder()) if record else None
+        t0 = time.perf_counter()
+        run_cli(sim_dir, out_dir, device=device, extra=[*flags, *extra])
+        sync_cards()
+        wall = time.perf_counter() - t0
+    stages = dict(timing.STAGE_TIMES)
+    rec = {"phase": "multicard_run", "config": label, "shards": shards,
+           "device": device, "flags": extra, "wall_s": wall,
+           "stages_s": {k: stages.get(k) for k in (
+               "ingest_realign", "phasing", "phase.launch", "phase.wait",
+               "join_outputs")},
+           "launches": dict(_build.LAUNCHES),
+           "peak_bytes_per_card": [torch.cuda.max_memory_allocated(i)
+                                   for i in range(n)]}
+    largest = (max(beams.beam, key=lambda b: b[0][0].shape[0])
+               if record else None)
+    return rec, sweep_digests(sweeps.sweeps), largest
+
+
+def _median(xs):
+    xs = sorted(x for x in xs if x is not None)
+    return xs[len(xs) // 2] if xs else None
+
+
+def mesh_runs(label, sim_dir, tmp, sizes, repeats, flags=(), golden=None):
+    """`repeats` rounds of CLI runs of one config at every mesh size in
+    `sizes` (1 first), each held to the JAX CLI's sweep (blocks) and to
+    the one-card run of round 0 (output files), and, with `golden` (the
+    JAX CLI's output hashes), to those. Returns ({size: medians}, the
+    one-card output directory, the largest K1 dispatch of that run,
+    its sweep's (blocks, Options))."""
+    ref = os.path.join(tmp, f"{label}_ref")
+    out = os.path.join(tmp, f"{label}_out")
+    runs, largest = {s: [] for s in sizes}, None
+    for rep in range(repeats):
+        for s in sizes:
+            first = rep == 0 and s == 1
+            rec, digests, big = mesh_run(label, sim_dir, out, s, flags,
+                                         record=first)
+            rec["round"] = rep
+            emit(rec)
+            runs[s].append(rec)
+            labels = {"config": label, "shards": s, "round": rep}
+            hold("sweep vs the JAX CLI's (blocks)", lambda: decision_diff(
+                label, digests, sim_dir)[:2], **labels)
+            if golden is not None:
+                hold("bytes vs the JAX CLI's (files)", lambda: (
+                    lambda n, bad: (n, len(bad)))(*golden_diff(
+                        label, out, golden)), **labels)
+            if first:
+                largest, one_digests = big, digests
+                shutil.move(out, ref)
+                continue
+            hold("sweep vs one card (blocks)", lambda: _digest_diff(
+                one_digests, digests), **labels)
+            hold("bytes vs one card (files)", lambda: (
+                lambda n, bad: (n, len(bad)))(*tree_diff(ref, out)),
+                **labels)
+            shutil.rmtree(out)
+    medians = {}
+    for s, recs in runs.items():
+        medians[s] = {
+            "wall_s": _median([r["wall_s"] for r in recs]),
+            "wall_s_runs": [r["wall_s"] for r in recs],
+            **{k: _median([r["stages_s"][k] for r in recs])
+               for k in recs[0]["stages_s"]},
+            "launches": recs[-1]["launches"],
+            "peak_bytes_per_card": recs[-1]["peak_bytes_per_card"]}
+    return medians, ref, largest
+
+
+def _median_lists(rows):
+    """The elementwise median of equal-length lists."""
+    return [_median(col) for col in zip(*rows)]
+
+
+def _digest_diff(want, got):
+    """(blocks compared, blocks differing) of two runs' sweep_digests."""
+    if sorted(want) != sorted(got):
+        raise AssertionError("the runs phased other contigs")
+    compared = sum(len(v) for v in want.values())
+    return compared, sum(a != b for c in want for a, b in
+                         zip(want[c], got[c])) + sum(
+        abs(len(want[c]) - len(got[c])) for c in want)
+
+
+def _instance_diff(want, got):
+    """(instances compared, differing) of two instance digest maps."""
+    if sorted(want) != sorted(got):
+        raise AssertionError("other (block, ploidy) instances")
+    return len(want), sum(want[k] != got[k] for k in want)
+
+
+def multicard_instances(sizes, cases):
+    """phase_instances over each mesh of `sizes`, and refine_instances
+    on a named second card (cuda:1; cuda:0 on one card), against one
+    card and the JAX package's digests (GOLDEN_INSTANCES), on each case
+    (name, blocks, Options) of the golden record."""
+    from floria_tpu_torch.phase import local
+
+    with open(GOLDEN_INSTANCES) as fh:
+        golden = json.load(fh)["cases"]
+    one_card, second = mesh_of(2)
+    for case, blocks, opts in cases:
+        if blocks_sha256(blocks) != golden[case]["blocks_sha256"]:
+            raise AssertionError(f"instances {case}: the blocks differ "
+                                 "from the golden record's")
+        ploidies = range(1, opts.max_ploidy + 1)
+        beam = local.phase_instances(blocks, opts, bench.PLOIDIES,
+                                     device=one_card)
+        refined, stats = local.refine_instances(blocks, beam, opts,
+                                                ploidies=ploidies,
+                                                device=one_card)
+        one = instance_digests(beam, refined, stats)
+        hold("phase_instances on one card vs the JAX package's",
+             lambda: _instance_diff(golden[case]["beam"], one["beam"]),
+             case=case, shards=1)
+        for s in sizes:
+            t0 = time.perf_counter()
+            got = local.phase_instances(blocks, opts, bench.PLOIDIES,
+                                        device=mesh_of(s))
+            wall = time.perf_counter() - t0
+            dig = instance_digests(got, {}, {})["beam"]
+            labels = {"case": case, "shards": s, "wall_s": wall}
+            hold("phase_instances vs one card", lambda: _instance_diff(
+                one["beam"], dig), **labels)
+            hold("phase_instances vs the JAX package's", lambda:
+                 _instance_diff(golden[case]["beam"], dig), **labels)
+        refined2, stats2 = local.refine_instances(
+            blocks, beam, opts, ploidies=ploidies, device=second)
+        dig = instance_digests({}, refined2, stats2)["refine"]
+        labels = {"case": case, "device": str(second)}
+        hold("refine_instances vs cuda:0", lambda: _instance_diff(
+            one["refine"], dig), **labels)
+        hold("refine_instances vs the JAX package's", lambda:
+             _instance_diff(golden[case]["refine"], dig), **labels)
+
+
+def multicard_dryrun(sizes):
+    """entry.dryrun_multichip over each mesh, its sweep held block by
+    block to the same sweep on cuda:0."""
+    from floria_tpu_torch import entry
+    from floria_tpu_torch.phase.local import adaptive_sweep
+
+    for s in sizes:
+        with SweepRecorder() as rec:
+            entry.dryrun_multichip(s, device=mesh_of(s))
+        (blocks, opts, got, _c), = rec.sweeps
+        want = adaptive_sweep(blocks, opts, device=mesh_of(1)[0])
+
+        def diff():
+            bad = sum(got[0][k][0] != want[0][k][0]
+                      or not np.array_equal(got[0][k][1], want[0][k][1])
+                      or not np.array_equal(got[1][k], want[1][k])
+                      or not np.array_equal(got[2][k], want[2][k])
+                      for k in want[0])
+            return len(want[0]), bad
+
+        hold("dryrun_multichip sweep vs one card", diff, shards=s)
+
+
+def _raise(e):
+    raise e
+
+
+class CardMemorySampler:
+    """While active, samples every card's used memory (nvidia-smi's
+    memory.used, MiB: the CUDA contexts and every process's allocations)
+    every `period` seconds on a thread; `peak_mib` is each card's
+    largest sample less its first."""
+
+    def __init__(self, period=0.25):
+        import threading
+
+        self.period, self.samples = period, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+        return [int(x) for x in out.split()]
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            self.samples.append(self._sample())
+
+    def __enter__(self):
+        self.samples.append(self._sample())
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def peak_mib(self):
+        base = self.samples[0]
+        good = [s for s in self.samples if len(s) == len(base)]
+        return [max(s[i] for s in good) - base[i] for i in range(len(base))]
+
+
+def multicard_ranks(config, sim_dir, tmp, one_dir, repeats):
+    """`config` (multi500) as 2 and 4 ranks (those a machine's cards allow; on one
+    card both counts, sharing it), each on its own cards (--device cuda)
+    and each on every card (an explicit list per rank, the layout before
+    ranks split their host's cards): each run's bytes against one
+    process and each rank's sweep against the JAX CLI's. Returns the
+    medians per (ranks, layout)."""
+    n = torch.cuda.device_count()
+    every = ",".join(f"cuda:{i}" for i in range(max(1, n)))
+    out = {}
+    for nproc in (2, 4):
+        for layout, device in (("own cards", "cuda"),
+                               ("every card", every)):
+            recs = []
+            for rep in range(repeats):
+                # The -o of the one-process run: the outputs embed it.
+                run_dir = os.path.join(tmp, f"{config}_out")
+                labels = {"config": config, "ranks": nproc,
+                          "layout": layout, "round": rep}
+                torch.cuda.empty_cache()
+                try:
+                    with CardMemorySampler() as mem:
+                        wall, ranks, digests = run_ranks(
+                            sim_dir, run_dir, nproc, timeout=900,
+                            device=device)
+                except AssertionError as e:
+                    hold("ranks run", functools.partial(_raise, e),
+                         **labels)
+                    continue
+                if layout == "own cards":
+                    hold("each rank on its own cards (ranks)", lambda: (
+                        check_rank_cards(ranks, nproc), (nproc, 0))[1],
+                        **labels)
+                hold("ranks' sweeps vs the JAX CLI's (blocks)", lambda:
+                     decision_diff(config, digests, sim_dir)[:2],
+                     **labels)
+                hold("ranks' bytes vs one process (files)", lambda: (
+                    lambda k, bad: (k, len(bad)))(*tree_diff(
+                        one_dir, run_dir, files=_shared_tree)), **labels)
+                contexts = [sum(i in r["cards"] for r in ranks)
+                            for i in range(n)]
+                rec = {"phase": "multicard_ranks", **labels, "wall_s": wall,
+                       "rank_cli_s": [r["cli_s"] for r in ranks],
+                       "rank_phasing_s": [r["stages_s"].get("phasing")
+                                          for r in ranks],
+                       "rank_phases_on": [r["phases_on"] for r in ranks],
+                       "rank_context_cards": [r["cards"] for r in ranks],
+                       "contexts_per_card": contexts,
+                       "card_used_mib_peak": mem.peak_mib(),
+                       "rank_peak_bytes_per_card": [r["peak_bytes"]
+                                                    for r in ranks],
+                       "rank_launches": [r["launches"] for r in ranks]}
+                emit(rec)
+                recs.append(rec)
+                shutil.rmtree(run_dir)
+            if recs:
+                out[f"{nproc} ranks, {layout}"] = {
+                    "wall_s": _median([r["wall_s"] for r in recs]),
+                    "wall_s_runs": [r["wall_s"] for r in recs],
+                    "rank_cli_s": [_median([r["rank_cli_s"][k] for r in recs])
+                                   for k in range(nproc)],
+                    "contexts_per_card": recs[-1]["contexts_per_card"],
+                    "card_used_mib_peak": _median_lists(
+                        [r["card_used_mib_peak"] for r in recs]),
+                    "rank_peak_bytes_per_card":
+                        recs[-1]["rank_peak_bytes_per_card"]}
+    return out
+
+
+def multicard_main(repeats):
+    """--multicard: the holds (HOLDS, differing against compared) and the
+    measurements of every sharded path, over meshes of 2 and 4 shards.
+    Exits 1 if any hold failed."""
+    import logging
+
+    from floria_tpu_torch import native
+    from floria_tpu_torch.kernels import _build
+
+    # The CLI's INFO lines for 500 contigs would flood the output.
+    logging.basicConfig(level=logging.WARNING)
+    n = torch.cuda.device_count()
+    emit({"phase": "device", "nvidia_smi": CARD, "device_count": n,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device_name": torch.cuda.get_device_name(0)})
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_build = pool.submit(native.get_lib)
+        _build.build(force=True)
+        _build.get_lib()
+        native_build.result()
+    emit({"phase": "build", "seconds": time.time() - t0})
+    sizes = (2, 4)
+    summary = {"phase": "multicard_summary", "cards": n,
+               "shards_per_card": 1 if n >= max(sizes) else "several",
+               "repeats": repeats}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="floria_multicard_") as tmp:
+        # Every card's context and kernels loaded before anything is
+        # timed.
+        multicard_dryrun(sizes)
+        north = load_north_star()["configs"]
+        _cfg, ecoli2_dir = bench.e2e_inputs(False, tmp)
+        summary["ecoli2"], _ref, largest = mesh_runs(
+            "ecoli2", ecoli2_dir, tmp, (1, *sizes), repeats)
+        for s in sizes:
+            k1 = sharded_k1(mesh_of(1)[0], mesh_of(s), largest)
+            hold("sharded K1 vs unsharded K1 and the plain scan "
+                 "(instances)", lambda: (k1["compared"], k1["differing"]),
+                 shards=s, sharded_ms=k1["sharded_ms"],
+                 unsharded_ms=k1["unsharded_ms"])
+        with SweepRecorder() as rec:
+            mesh_run("ecoli2", ecoli2_dir, os.path.join(tmp, "e2"), 1)
+        multicard_instances(sizes, [
+            (f"bench {G}x{R}x{S}", *bench_blocks(G, R, S))
+            for G, R, S in BENCH_SHAPES] + [("ecoli2", *rec.sweeps[0][:2])])
+        del rec, largest
+        c4_dir = os.path.join(tmp, "config4")
+        simulate_case(north["config4"], c4_dir)
+        summary["config4"], _ref, _l = mesh_runs(
+            "config4", c4_dir, tmp, (1, *sizes), repeats,
+            flags=case_args(north["config4"], c4_dir),
+            golden=north["config4"]["outputs_sha256"])
+        for name, entry in north.items():
+            if name == "config4":
+                continue
+            sim_dir = os.path.join(tmp, name)
+            simulate_case(entry, sim_dir)
+            mesh_runs(name, sim_dir, tmp, (1, *sizes), 1,
+                      flags=case_args(entry, sim_dir),
+                      golden=entry["outputs_sha256"])
+        multi_dir = os.path.join(tmp, "multi")
+        multihost_bench.build_sim(multihost_bench.CONTIGS, multi_dir)
+        summary["multi500"], one_dir, _l = mesh_runs(
+            "multi500", multi_dir, tmp, (1, *sizes), repeats)
+        summary["multi500_ranks"] = multicard_ranks(
+            "multi500", multi_dir, tmp, one_dir, repeats)
+    failed = [h for h in HOLDS if not h["ok"]]
+    summary.update(
+        seconds=time.perf_counter() - t_all, holds=len(HOLDS),
+        holds_failed=len(failed),
+        items_compared=sum(h["compared"] or 0 for h in HOLDS),
+        items_differing=sum(h["differing"] or 0 for h in HOLDS),
+        by_hold={name: [sum(h["compared"] or 0 for h in HOLDS
+                            if h["hold"] == name),
+                        sum(h["differing"] or 0 for h in HOLDS
+                            if h["hold"] == name)]
+                 for name in dict.fromkeys(h["hold"] for h in HOLDS)},
+        failed=[{k: h.get(k) for k in ("hold", "config", "case", "shards",
+                                       "ranks", "layout", "error")}
+                for h in failed][:20], nvidia_smi=CARD)
+    emit(summary)
+    loaded = loaded_reference_modules()
+    if loaded:
+        raise AssertionError(f"the port loaded jax or floria_tpu: {loaded}")
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": not failed, "multicard": True,
+          "device": {"platform": "gpu",
+                     "kind": torch.cuda.get_device_name(0), "count": n}})
+    if failed:
+        raise SystemExit(1)
+
+
 def ptxas_report(lines, kernel: str):
     """[{entry, registers, spill_stores, spill_loads}] for each compiled
     entry whose name holds `kernel`, from ptxas's -v lines."""
@@ -2683,6 +3220,13 @@ def main(argv=None) -> None:
                     help="also save the inputs of every timed K4, K5 and "
                     "climb case (torch.save of {call: {label: args}}) for "
                     "scripts/torch_kernel_parent_ab.py")
+    ap.add_argument("--multicard", action="store_true",
+                    help="instead of the smoke, hold every sharded path "
+                    "over meshes of 2 and 4 cards (of cuda:0 where the "
+                    "machine has fewer) to one card and to the JAX "
+                    "package's golden records, and measure them")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="--multicard: runs per measured configuration")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2691,6 +3235,9 @@ def main(argv=None) -> None:
     from floria_tpu_torch.kernels import _build
 
     CARD = nvidia_smi_line()
+    if args.multicard:
+        multicard_main(args.repeats)
+        return
     emit({"phase": "device", "nvidia_smi": CARD,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_name": torch.cuda.get_device_name(0),

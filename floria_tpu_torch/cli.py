@@ -10,7 +10,9 @@ plus `--device`.
 Block batches shard over the local cards (`--num-devices`, default all;
 on the CPU, N shards of the one device); `--num-processes` shards the
 contigs over processes, rank 0 hosting the barrier's store at
-`--coordinator`.
+`--coordinator`, and the ranks on one host split its cards between them
+(parallel/multihost.py `rank_cards`). A named card (`cuda:1`) or a
+comma-separated list (`cuda:0,cuda:2`) is used as given.
 """
 
 from __future__ import annotations
@@ -195,21 +197,26 @@ def build_parser():
     p.prog = "floria-tpu-torch"
     p.add_argument("--device", default="cuda",
                    help="Torch device for the phasing kernels: cuda "
-                        "(default; raises without a GPU) or cpu (the "
-                        "plain PyTorch path).")
+                        "(default; raises without a GPU; the local cards, "
+                        "split between the ranks of one host), a named "
+                        "card (cuda:1), a comma-separated list of cards, "
+                        "or cpu (the plain PyTorch path).")
     return p
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    mesh = make_block_mesh(args.num_devices, device=args.device)
+    device = args.device.split(",") if "," in args.device else args.device
+    # Checks the device before anything else runs; ranks resolve a bare
+    # "cuda" once the store tells them how many share the host.
+    mesh = make_block_mesh(args.num_devices, device=device)
     if args.num_processes > 1 and not args.coordinator:
         raise ValueError("--num-processes > 1 needs --coordinator "
                          "host:port (rank 0 hosts the store there)")
     options = options_from_args(args)
     if args.num_processes > 1:
         run_multihost(options, args.num_processes, args.process_id,
-                      args.coordinator, device=mesh)
+                      args.coordinator, device=device)
     else:
         run(options, device=mesh)
 

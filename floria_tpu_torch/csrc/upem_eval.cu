@@ -82,6 +82,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -711,16 +713,21 @@ __global__ void __launch_bounds__(THREADS, 1) upem_eval_kernel(
 }
 
 // Raises the dynamic shared-memory limit of kernel `slot` (`fn`) to
-// `smem_max` on the current device, once per device.
+// `smem_max` on the current device, once per device. The host threads of
+// a sharded dispatch call it at once, two of them for one card where
+// shards share it: the flags are atomic (setting the attribute twice is
+// harmless).
 cudaError_t allow_smem(const void* fn, int slot, int smem_max) {
-  static bool set[8][64];
+  static std::atomic<bool> set[8][64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev < 64 && set[slot][dev]) return cudaSuccess;
+  if (dev < 64 && set[slot][dev].load(std::memory_order_acquire))
+    return cudaSuccess;
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_max);
-  if (e == cudaSuccess && dev < 64) set[slot][dev] = true;
+  if (e == cudaSuccess && dev < 64)
+    set[slot][dev].store(true, std::memory_order_release);
   return e;
 }
 

@@ -6,6 +6,9 @@ process, only its contigs are decoded into fragments) on its own devices
 and writes its own per-contig output directories; per-contig outputs are
 independent. Only the summary TSV is shared: each process appends to
 contig_ploidy_info.<rank>.tsv and rank 0 merges them after a barrier.
+Ranks that share a host split its cards as they split its cores
+(`rank_cards`): a bare --device cuda gives each rank cards of its own, as
+each JAX process sees only its local devices.
 
 No data crosses processes, so there is no process group: the barrier is
 a torch.distributed.TCPStore that rank 0 hosts at --coordinator. The
@@ -25,13 +28,15 @@ import json
 import logging
 import os
 import socket
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import constants
+from ..device import resolve_device
 from ..native import BUILD_DIR
 from ..options import Options
+from .mesh import make_block_mesh
 
 log = logging.getLogger("floria_tpu")
 
@@ -61,17 +66,40 @@ def initialize_distributed(coordinator: Optional[str],
 
 
 def _share_host_cores(store, options: Options, num_processes: int,
-                      process_id: int) -> None:
+                      process_id: int) -> Tuple[int, int]:
     """Divide this process's torch intra-op threads and its host worker
     budget (options.num_threads, which pipeline.run hands to the native
     pools) by the number of ranks on its host (each rank publishes its
-    host name)."""
+    host name). Returns (this rank's index among its host's ranks, in
+    process-id order; the number of ranks on its host)."""
     host = socket.gethostname()
     store.set(f"host/{process_id}", host)
-    local = sum(store.get(f"host/{k}").decode() == host
-                for k in range(num_processes))
+    same = [store.get(f"host/{k}").decode() == host
+            for k in range(num_processes)]
+    local = sum(same)
     torch.set_num_threads(max(1, torch.get_num_threads() // local))
     options.num_threads = max(1, options.num_threads // local)
+    return sum(same[:process_id]), local
+
+
+def rank_cards(device, num_devices: Optional[int], local_rank: int,
+               local_ranks: int) -> List[torch.device]:
+    """The block mesh of rank `local_rank` of the `local_ranks` ranks on
+    one host. A bare "cuda" splits the host's n cards between its ranks:
+    cards k, k + L, k + 2L, ... when L <= n, card k mod n when L > n (the
+    ranks then share cards), at most `num_devices` of them. A named card,
+    a list of devices and the CPU give make_block_mesh's mesh, as in one
+    process."""
+    if not isinstance(device, (list, tuple)):
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            n = torch.cuda.device_count()
+            cards = (list(range(local_rank, n, local_ranks))
+                     if local_ranks <= n else [local_rank % n])
+            if num_devices is not None:
+                cards = cards[:max(1, num_devices)]
+            return [torch.device("cuda", i) for i in cards]
+    return make_block_mesh(num_devices, device=device)
 
 
 def contigs_for_process(contigs: List[str], process_id: int,
@@ -107,10 +135,11 @@ def contigs_for_process(contigs: List[str], process_id: int,
 def run_multihost(options: Options, num_processes: int, process_id: int,
                   coordinator: Optional[str] = None, *, device) -> None:
     """Phase this process's contig shard on `device` (a device or a block
-    mesh), then merge the summary TSVs on rank 0 after a barrier. A rank
-    that fails once the store is up still reaches the barrier, so no
-    rank waits for it, and raises; rank 0 then raises too, without
-    merging."""
+    mesh; a bare "cuda" becomes this rank's own cards, `rank_cards` with
+    options.num_devices), then merge the summary TSVs on rank 0 after a
+    barrier. A rank that fails once the store is up still reaches the
+    barrier, so no rank waits for it, and raises; rank 0 then raises
+    too, without merging."""
     store = initialize_distributed(coordinator, num_processes, process_id)
     from ..ingest import bam as bamlib
     from ..pipeline import run
@@ -118,7 +147,17 @@ def run_multihost(options: Options, num_processes: int, process_id: int,
     failed = None
     try:
         if store is not None:
-            _share_host_cores(store, options, num_processes, process_id)
+            local_rank, local_ranks = _share_host_cores(
+                store, options, num_processes, process_id)
+            device = rank_cards(device, options.num_devices, local_rank,
+                                local_ranks)
+            if device[0].type == "cuda":
+                # Work that names no card lands on the rank's first.
+                torch.cuda.set_device(device[0])
+            log.info("Rank %d of %d (%d of %d on host %s) phases on %s.",
+                     process_id, num_processes, local_rank, local_ranks,
+                     socket.gethostname(),
+                     ", ".join(dict.fromkeys(map(str, device))))
         all_contigs = bamlib.get_contigs_to_phase(options.bam_file)
         weights = None
         if num_processes > 1:

@@ -4,8 +4,9 @@
 TCPStore barrier, rank 0 merging the summary TSVs), wall-clocked, with
 scaling efficiency (the port of scripts/multihost_bench.py).
 
-Every rank runs on `--device` (cuda by default: all ranks share the
-host's card, each rank's blocks on it; cpu for tests). Host stages
+Every rank runs on `--device` (cuda by default: the ranks split the
+host's cards, parallel/multihost.py `rank_cards`, and share them where
+there are fewer cards than ranks; cpu for tests). Host stages
 (ingest, join, outputs) dominate a rank's time and are what this axis
 scales.
 

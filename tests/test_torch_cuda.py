@@ -6,8 +6,9 @@ evaluation: init, step and unit MEC; the climb kernel, over its routes,
 against the plain climb, in one launch with no host wait); the climb on
 the card against the CPU, and a sweep level enqueued without a host
 wait; the sharded beam and sweep (parallel/mesh.py) against the
-unsharded run, two shards on one card, and on two cards where a machine
-has them; and the port's CLI on the card against the JAX package's
+unsharded run, two shards on one card, and one shard per card on two
+and on four cards where a machine has them; the instance API over cards;
+two CLI ranks each on cards of their own; and the port's CLI on the card against the JAX package's
 pipeline on JAX's CPU backend, in one process, on the round's small
 configs; and the port's decisions on the main path's own recorded calls
 against the JAX package on JAX's CPU backend (the holds of
@@ -27,6 +28,7 @@ without one (decided inside the fixture). On a machine with a card:
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -666,17 +668,80 @@ def test_sharded_sweep_on_one_card_matches_unsharded(dev):
     _sweep_sharded_vs_unsharded([torch.device("cuda", 0)] * 2)
 
 
-def test_shards_on_two_cards_match_one_card(dev):
+@pytest.mark.parametrize("cards", [2, 4])
+def test_shards_on_cards_match_one_card(dev, cards):
     """Guards the wrappers' device switch: K1 and K4 set kernel
-    attributes and K1 reads the SM count of the current device, so a
-    shard on cuda:1 must make cuda:1 current. Needs two cards."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA cards")
-    mesh = [torch.device("cuda", 0), torch.device("cuda", 1)]
-    assert TB.cluster_width(8, mesh[1]) == TB.cluster_width(8, mesh[0])
+    attributes, K1 reads the SM count of the current device and K6 raises
+    its shared-memory limit once per device, so a shard on cuda:k must
+    make cuda:k current. One shard per card; needs that many cards."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA cards")
+    mesh = [torch.device("cuda", k) for k in range(cards)]
+    for card in mesh[1:]:
+        assert TB.cluster_width(8, card) == TB.cluster_width(8, mesh[0])
     _beam_sharded_vs_unsharded(mesh)
     _sweep_sharded_vs_unsharded(mesh)
-    entry.dryrun_multichip(2, device=mesh)
+    entry.dryrun_multichip(cards, device=mesh)
+
+
+@pytest.mark.parametrize("cards", [2, 4])
+def test_instance_api_over_cards_matches_one_card_and_jax(dev, instances,
+                                                          cards):
+    """phase_instances split over one shard per card, and
+    refine_instances on a named second card (a new BlockDeviceCache
+    there, K6's shared-memory limit raised on it), against cuda:0 and
+    the JAX package's results."""
+    from floria_tpu_torch.options import Options
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA cards")
+    blocks, opts, want_beam, (want_ref, want_stats) = instances
+    ours = port_blocks(blocks)
+    one = TL.phase_instances(ours, Options(**opts), [2, 3, 4, 5],
+                             device="cuda:0")
+    _build.LAUNCHES.clear()
+    beam = TL.phase_instances(ours, Options(**opts), [2, 3, 4, 5],
+                              device=[torch.device("cuda", k)
+                                      for k in range(cards)])
+    assert _build.LAUNCHES["beam_scan"] >= 2
+    ref, stats = TL.refine_instances(ours, want_beam, Options(**opts),
+                                     device="cuda:1")
+    for got, want in ((beam, one), (beam, want_beam), (ref, want_ref)):
+        assert set(got) == set(want)
+        for key in want:
+            assert _same(got[key], want[key]), key
+    assert stats == want_stats
+
+
+def test_ranks_take_cards_of_their_own(dev, tmp_path):
+    """Two ranks of the CLI with a bare --device cuda on a host with two
+    or more cards: each logs the cards multihost.rank_cards gives it,
+    holds a CUDA context (and allocates) on its first and on no card
+    outside its own, and together they write one process's bytes."""
+    import chip_smoke
+    from floria_tpu_torch.scripts import multihost_bench
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    sim = str(tmp_path / "sim")
+    multihost_bench.build_sim(8, sim)
+    outs = {}
+    for nproc in (1, 2):
+        # One -o for both runs: the outputs embed it.
+        out = str(tmp_path / "out")
+        _wall, ranks, _digests = chip_smoke.run_ranks(sim, out, nproc)
+        outs[nproc] = str(tmp_path / f"out{nproc}")
+        os.rename(out, outs[nproc])
+    chip_smoke.check_rank_cards(ranks, 2)
+    for k, rank in enumerate(ranks):
+        own = chip_smoke.own_cards(k, 2)
+        assert rank["phases_on"] == [f"cuda:{i}" for i in own]
+        assert rank["peak_bytes"][str(own[0])] > 0
+        assert set(map(int, rank["peak_bytes"])) <= set(own)
+        assert rank["launches"]["beam_scan"] > 0
+    n, bad = chip_smoke.tree_diff(outs[1], outs[2],
+                                  files=chip_smoke._shared_tree)
+    assert n > 0 and bad == []
 
 
 @pytest.mark.parametrize("name", SMALL)
@@ -790,11 +855,20 @@ def test_k5_decisions_match_jax_nw(dev, tmp_path):
 # backend, bitwise.
 
 
+def _k1_launches(device, buckets=(12, 8)):
+    """The K1 launches of phase_instances on the `instances` fixture's
+    two buckets (3 and 2 blocks at four ploidies, one dispatch each) over
+    the mesh `device` gives: one per non-empty shard."""
+    n = len(TM.make_block_mesh(device=device))
+    return sum(hi > lo for m in buckets for lo, hi in TM.shard_bounds(m, n))
+
+
 def test_instance_api_on_the_card_matches_jax(dev, instances):
     """phase_instances at ploidies 2..5 (one mixed K1 dispatch per shape
-    bucket) and refine_instances at 1..5 (one climb kernel launch per
-    ploidy and bucket, ploidy 1 included) on the card, against the JAX
-    package's on the same five blocks of two buckets."""
+    bucket, split over the cards a bare "cuda" spreads over) and
+    refine_instances at 1..5 (one climb kernel launch per ploidy and
+    bucket, ploidy 1 included) on the card, against the JAX package's on
+    the same five blocks of two buckets."""
     from floria_tpu_torch.options import Options
 
     blocks, opts, want_beam, (want_ref, want_stats) = instances
@@ -804,7 +878,8 @@ def test_instance_api_on_the_card_matches_jax(dev, instances):
                               device=dev)
     ref, stats = TL.refine_instances(ours, want_beam, Options(**opts),
                                      device=dev)
-    assert dict(_build.LAUNCHES) == {"beam_scan": 2, "upem_climb": 10}
+    assert dict(_build.LAUNCHES) == {"beam_scan": _k1_launches(dev),
+                                     "upem_climb": 10}
     for got, want in ((beam, want_beam), (ref, want_ref)):
         assert set(got) == set(want)
         for key in want:
@@ -829,7 +904,8 @@ def test_instance_api_takes_a_cache_of_the_card_named_either_way(
                                   cache, device=call)
         ref, stats = TL.refine_instances(ours, want_beam, Options(**opts),
                                          cache, device=call)
-        assert dict(_build.LAUNCHES) == {"beam_scan": 2, "upem_climb": 10}
+        assert dict(_build.LAUNCHES) == {"beam_scan": _k1_launches(call),
+                                         "upem_climb": 10}
         for got, want in ((beam, want_beam), (ref, want_ref)):
             assert set(got) == set(want)
             for key in want:

@@ -7,6 +7,7 @@ four-contig community, byte-equal to one process and to the JAX
 package's output."""
 
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -14,12 +15,14 @@ import threading
 import numpy as np
 import pytest
 import torch
+from torch.distributed import HashStore
 
 from floria_tpu import cli as jax_cli
 from floria_tpu import constants
 from floria_tpu.options import Options as JaxOptions
 from floria_tpu.parallel import multihost as JMH
 from floria_tpu_torch.options import Options
+from floria_tpu_torch.parallel import mesh as TM
 from floria_tpu_torch.parallel import multihost as TMH
 from test_multihost import _build_multi_sim, _free_port
 from test_torch_jaxfree import _REFUSE, _UNLOADED
@@ -150,6 +153,125 @@ def test_ranks_on_one_host_split_its_worker_budget():
     assert errs == [None] * 3
     assert res == [3] * 3
     assert torch.get_num_threads() == 1
+
+
+def _own_cards(k, L, n, cap):
+    """The card split written out: rank k of the L ranks on a host with
+    n cards takes cards k, k + L, ... (L <= n) or card k mod n (L > n),
+    at most `cap` of them."""
+    cards = [c for c in range(n) if c % L == k] if L <= n else [k % n]
+    return cards if cap is None else cards[:cap]
+
+
+# (ranks on the host, cards, --num-devices, --device).
+_CARD_CASES = (
+    [(L, n, None, "cuda") for L in (1, 2, 3, 4, 6) for n in (1, 2, 4, 8)]
+    + [(1, 8, 2, "cuda"), (2, 8, 1, "cuda"), (3, 8, 2, "cuda"),
+       (4, 8, 5, "cuda"), (6, 4, 2, "cuda")]
+    + [(2, 4, None, "cuda:1"), (3, 4, 2, torch.device("cuda", 3)),
+       (2, 4, None, ("cuda:2", "cuda:0")), (2, 4, 1, ("cuda:3", "cuda:1")),
+       (2, 4, 3, "cpu")])
+
+
+@pytest.mark.parametrize("L,n,cap,device", _CARD_CASES)
+def test_ranks_on_one_host_split_its_cards(monkeypatch, L, n, cap, device):
+    """Each of the L ranks on a host, counted in process-id order among
+    the ranks the store gives this host name (two ranks of another host
+    interleaved), takes its share of the host's n cards from a bare
+    "cuda", capped by --num-devices; a named card, a list and the CPU
+    stay as make_block_mesh gives them."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    hosts = [socket.gethostname()] * L
+    hosts[L // 2:L // 2] = ["another-host"]
+    hosts.insert(0, "another-host")
+    mine = [p for p, h in enumerate(hosts) if h != "another-host"]
+    store = HashStore()
+    for p, h in enumerate(hosts):
+        store.set(f"host/{p}", h)
+    meshes = []
+    for k, p in enumerate(mine):
+        assert TMH._share_host_cores(store, Options(num_threads=12),
+                                     len(hosts), p) == (k, L)
+        meshes.append(TMH.rank_cards(device, cap, k, L))
+    if device == "cuda":
+        want = [[torch.device("cuda", c) for c in _own_cards(k, L, n, cap)]
+                for k in range(L)]
+        assert meshes == want
+        cards = [d.index for m in meshes for d in m]
+        if L <= n:
+            assert len(set(cards)) == len(cards)
+            if cap is None:
+                assert sorted(cards) == list(range(n))
+        else:
+            assert sorted(set(cards)) == list(range(n))
+    else:
+        assert meshes == [TM.make_block_mesh(cap, device=device)] * L
+        if not isinstance(device, tuple) and device != "cpu":
+            assert meshes == [[torch.device(device)]] * L
+
+
+@pytest.mark.parametrize("cap", [None, 1])
+def test_run_multihost_phases_each_rank_on_its_own_cards(monkeypatch,
+                                                         caplog, tmp_path,
+                                                         cap):
+    """Two ranks of one host with a bare "cuda" on four cards: each
+    pipeline run gets the rank's own cards (0, 2 and 1, 3; the first of
+    each under --num-devices 1), makes its first card current, and the
+    rank logs them."""
+    from floria_tpu_torch import pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    current = {}
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: current.update(
+        {threading.get_ident(): d}))
+    got = {}
+
+    def run(options, *, device):
+        got[options.ploidy_tsv] = (device, current[threading.get_ident()])
+
+    monkeypatch.setattr(pipeline, "run", run)
+    monkeypatch.setattr(TMH, "_contig_snp_counts", lambda vcf: {})
+    monkeypatch.setattr("floria_tpu_torch.ingest.bam.get_contigs_to_phase",
+                        lambda bam: ["c0", "c1", "c2", "c3"])
+    coord = f"127.0.0.1:{_free_port()}"
+    caplog.set_level("INFO", logger="floria_tpu")
+    _res, errs = _ranks(lambda k: TMH.run_multihost(
+        Options(num_devices=cap, out_dir=str(tmp_path), num_threads=2),
+        2, k, coord, device="cuda"), 2)
+    assert errs == [None, None]
+    for k in (0, 1):
+        cards = [torch.device("cuda", c) for c in _own_cards(k, 2, 4, cap)]
+        assert got[f"contig_ploidy_info.{k}.tsv"] == (cards, cards[0])
+        assert any(f"Rank {k} of 2 (" in r.message
+                   and r.message.endswith(
+                       f"phases on {', '.join(map(str, cards))}.")
+                   for r in caplog.records)
+
+
+@pytest.mark.parametrize("device,nproc,want", [
+    ("cpu,cpu", 1, ["cpu", "cpu"]), ("cuda", 2, "cuda"),
+    ("cuda:0,cuda:1", 2, ["cuda:0", "cuda:1"])])
+def test_cli_hands_the_device_on(monkeypatch, tmp_path, device, nproc,
+                                 want):
+    """One process gets the block mesh (a comma-separated --device is a
+    list); ranks get --device unresolved, to split a bare "cuda" once
+    the store is up."""
+    from floria_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(cli, "options_from_args", lambda args: "opts")
+    got = []
+    monkeypatch.setattr(cli, "run", lambda o, *, device: got.append(device))
+    monkeypatch.setattr(cli, "run_multihost", lambda o, n, k, c, *, device:
+                        got.append(device))
+    cli.main(["-b", "x.bam", "-v", "x.vcf", "-r", "x.fa", "--device",
+              device, "--num-processes", str(nproc), "--coordinator",
+              "127.0.0.1:1"])
+    assert got == [want if nproc > 1 else
+                   [torch.device(d) for d in want]]
 
 
 def test_initialize_distributed_checks_its_arguments():
