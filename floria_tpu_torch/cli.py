@@ -22,7 +22,7 @@ import logging
 import os
 import sys
 
-from . import constants
+from . import constants, timing
 from .options import Options
 from .parallel.mesh import make_block_mesh
 from .parallel.multihost import run_multihost
@@ -146,7 +146,8 @@ def options_from_args(args: argparse.Namespace) -> Options:
     block_length = args.block_length
     if epsilon is None or block_length is None:
         from .ingest.autodetect import l_epsilon_auto_detect
-        est_l, est_e = l_epsilon_auto_detect(args.bam)
+        with timing.span("cli.estimate"):
+            est_l, est_e = l_epsilon_auto_detect(args.bam)
         if epsilon is None:
             epsilon = est_e
             logging.info("Estimated -e is %s", est_e)
@@ -204,6 +205,7 @@ def build_parser():
     return p
 
 
+@timing.span("cli.main")
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = args.device.split(",") if "," in args.device else args.device

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import timing
+
 
 def require_no_tf32() -> None:
     """Turn TF32 off (idempotent) and assert it is off."""
@@ -38,7 +40,9 @@ def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """`x` as a tensor on `device`. A card's copy goes through pinned
     host memory with non_blocking=True, so the host does not wait for the
     card (PyTorch's pinned-memory allocator keeps the staging buffer until
-    the copy has run); on the CPU the tensor shares `x`'s memory."""
+    the copy has run); on the CPU the tensor shares `x`'s memory. Its
+    bytes count as `h2d_bytes` of the open span on every device."""
+    timing.count("h2d_bytes", x.nbytes)
     t = torch.from_numpy(x)
     if device.type != "cuda":
         return t

@@ -29,7 +29,6 @@ boundary. The lowest value ever formed is NEG - 2 and the highest
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -312,62 +311,60 @@ def flush_pool(pool: RealignPool, *, device) -> None:
     if not pool._targets:
         return
     dev = resolve_device(device)
-    _t = time.time()
-    q = np.concatenate(pool._q)
-    si = np.concatenate(pool._si)
-    nal = np.concatenate(pool._nal).astype(np.int32)
-    ref_tab = np.concatenate(pool._tab_r)
-    al_tab = np.concatenate(pool._tab_al)
-    A = al_tab.shape[1]
+    with timing.span("realign.host_prep"):
+        q = np.concatenate(pool._q)
+        si = np.concatenate(pool._si)
+        nal = np.concatenate(pool._nal).astype(np.int32)
+        ref_tab = np.concatenate(pool._tab_r)
+        al_tab = np.concatenate(pool._tab_al)
+        A = al_tab.shape[1]
 
-    var = np.repeat(ref_tab[:, None, :], A, axis=1)
-    var[:, :, FLANK] = al_tab
-    var_packed = np.ascontiguousarray(
-        (var[:, :, 0::2] | (var[:, :, 1::2] << 4)).astype(np.uint8))
-    best = native.realign_exact(q, si, nal, var_packed)
-    # Jobs the Hamming precheck could not prove go to the NW; reads
-    # with identical windows at one SNP are one problem, solved once.
-    rest = np.nonzero(best < 0)[0]
-    if len(rest):
-        uniq_local, inv = native.dedup_jobs(q[rest], si[rest])
-        uniq = rest[uniq_local]
-    timing.add("realign.host_prep", time.time() - _t)
-    _t = time.time()
-    if len(rest):
-        bi = nal[uniq] <= 2
-        tables = None
-        for sel, a_max in ((bi, min(2, A)), (~bi, A)):
-            idx = uniq[sel]
-            if not len(idx):
-                continue
-            _tp = time.time()
-            if len(idx) <= CPP_MAX_JOBS:
-                best[idx] = native.nw_batch(q[idx], si[idx], nal[idx],
-                                            ref_tab, al_tab)
-                timing.add("realign.device.cpp", time.time() - _tp)
-                continue
-            if tables is None:  # uploaded once per flush
-                tables = [torch.from_numpy(x).to(dev)
-                          for x in (ref_tab, al_tab)]
-            jobs = [torch.from_numpy(x).to(dev)
-                    for x in (q[idx], si[idx], nal[idx])]
-            best[idx] = nw_best(*jobs, *tables, a_max).cpu().numpy()
-            timing.add("realign.device.nw_best", time.time() - _tp)
-        best[rest] = best[uniq][inv]
-    timing.add("realign.device", time.time() - _t)
-    _t = time.time()
+        var = np.repeat(ref_tab[:, None, :], A, axis=1)
+        var[:, :, FLANK] = al_tab
+        var_packed = np.ascontiguousarray(
+            (var[:, :, 0::2] | (var[:, :, 1::2] << 4)).astype(np.uint8))
+        best = native.realign_exact(q, si, nal, var_packed)
+        # Jobs the Hamming precheck could not prove go to the NW; reads
+        # with identical windows at one SNP are one problem, solved once.
+        rest = np.nonzero(best < 0)[0]
+        if len(rest):
+            uniq_local, inv = native.dedup_jobs(q[rest], si[rest])
+            uniq = rest[uniq_local]
+    with timing.span("realign.device"):
+        if len(rest):
+            bi = nal[uniq] <= 2
+            tables = None
+            for sel, a_max in ((bi, min(2, A)), (~bi, A)):
+                idx = uniq[sel]
+                if not len(idx):
+                    continue
+                if len(idx) <= CPP_MAX_JOBS:
+                    with timing.span("realign.device.cpp"):
+                        best[idx] = native.nw_batch(q[idx], si[idx],
+                                                    nal[idx], ref_tab,
+                                                    al_tab)
+                    continue
+                with timing.span("realign.device.nw_best"):
+                    if tables is None:  # uploaded once per flush
+                        tables = [torch.from_numpy(x).to(dev)
+                                  for x in (ref_tab, al_tab)]
+                    jobs = [torch.from_numpy(x).to(dev)
+                            for x in (q[idx], si[idx], nal[idx])]
+                    best[idx] = nw_best(*jobs, *tables,
+                                        a_max).cpu().numpy()
+            best[rest] = best[uniq][inv]
 
-    off = 0
-    for frag, snp_pos in pool._targets:
-        calls = best[off:off + len(snp_pos)]
-        off += len(snp_pos)
-        frag.set_calls(snp_pos, calls)
-    pool._q.clear()
-    pool._si.clear()
-    pool._nal.clear()
-    pool._targets.clear()
-    pool._tab_r.clear()
-    pool._tab_al.clear()
-    pool._tab_rows = 0
-    pool._gen += 1
-    timing.add("realign.scatter", time.time() - _t)
+    with timing.span("realign.scatter"):
+        off = 0
+        for frag, snp_pos in pool._targets:
+            calls = best[off:off + len(snp_pos)]
+            off += len(snp_pos)
+            frag.set_calls(snp_pos, calls)
+        pool._q.clear()
+        pool._si.clear()
+        pool._nal.clear()
+        pool._targets.clear()
+        pool._tab_r.clear()
+        pool._tab_al.clear()
+        pool._tab_rows = 0
+        pool._gen += 1

@@ -19,7 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import constants
+from .. import constants, timing
 from ..device import resolve_device
 from ..kernels import beam as beam_kernel
 
@@ -67,11 +67,18 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 def run_on_shards(fn, items: Sequence) -> list:
     """[fn(item) for item in items], one host thread per item, results in
-    item order; an exception of any item is raised here."""
+    item order; an exception of any item is raised here. Each thread's
+    spans are children of the caller's open span (timing.adopt)."""
     if len(items) <= 1:
         return [fn(it) for it in items]
+    parent = timing.current()
+
+    def adopted(it):
+        with timing.adopt(parent):
+            return fn(it)
+
     with ThreadPoolExecutor(max_workers=len(items)) as pool:
-        futures = [pool.submit(fn, it) for it in items]
+        futures = [pool.submit(adopted, it) for it in items]
         return [f.result() for f in futures]
 
 

@@ -33,7 +33,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -176,19 +175,20 @@ def phase_contigs_blocks(per_contig, options: Options, *, device
     debug_dir or None)]."""
     blocks: List[Tuple[Tuple[int, int], BlockTensor]] = []
     contig_frags = {}
-    for ci, (ckey, frags, snp_to_genome_pos, _dbg) in enumerate(
-            per_contig):
-        contig_frags[ci] = frags
-        ranges = get_range_with_lengths(
-            snp_to_genome_pos, options.block_length,
-            options.block_length // 3, options.snp_density)
-        bounds = interval_bounds(frags)
-        for j, rng in enumerate(ranges):
-            reads = find_reads_in_interval(rng[0], rng[1], frags,
-                                           bounds=bounds)
-            bt = pack_block(reads, rng)
-            if bt is not None:
-                blocks.append(((ci, j), bt))
+    with timing.span("phase.pack"):
+        for ci, (ckey, frags, snp_to_genome_pos, _dbg) in enumerate(
+                per_contig):
+            contig_frags[ci] = frags
+            ranges = get_range_with_lengths(
+                snp_to_genome_pos, options.block_length,
+                options.block_length // 3, options.snp_density)
+            bounds = interval_bounds(frags)
+            for j, rng in enumerate(ranges):
+                reads = find_reads_in_interval(rng[0], rng[1], frags,
+                                               bounds=bounds)
+                bt = pack_block(reads, rng)
+                if bt is not None:
+                    blocks.append(((ci, j), bt))
     out: Dict[object, List[LocalBlockResult]] = {
         ckey: [] for ckey, *_rest in per_contig}
     if not blocks:
@@ -213,6 +213,7 @@ def phase_contigs_blocks(per_contig, options: Options, *, device
     return out
 
 
+@timing.span("adaptive_sweep")
 def adaptive_sweep(blocks, options: Options,
                    cache: Optional["BlockDeviceCache"] = None, *,
                    device):
@@ -231,7 +232,6 @@ def adaptive_sweep(blocks, options: Options,
 
     Returns ({key: (best_ploidy, assignment)}, {key: mec_vector},
     {key: expected_errors})."""
-    sweep_t = time.time()
     mesh = make_block_mesh(options.num_devices, device=device)
     caches = _mesh_caches(blocks, cache, mesh)
     max_p = options.max_ploidy
@@ -247,14 +247,10 @@ def adaptive_sweep(blocks, options: Options,
     for entry in schedule:
         if not active:
             break
-        lvl_t = time.time()
         pending = _sweep_launch(active, options, caches, [entry])
         levels = entry if isinstance(entry, tuple) else (entry,)
-        launch_s = time.time() - lvl_t
         refined_p, stats_p = _sweep_pull(pending)
-        log.debug("sweep level %s: %d blocks, launch %.2fs, "
-                  "exec+pull %.2fs", entry, len(active), launch_s,
-                  time.time() - lvl_t - launch_s)
+        log.debug("sweep level %s: %d blocks", entry, len(active))
         next_active = []
         for key, bt in active:
             undecided = True
@@ -275,7 +271,7 @@ def adaptive_sweep(blocks, options: Options,
                 next_active.append((key, bt))
         active = next_active
     log.info("Beam search: %d blocks, adaptive chained sweep <= %d in "
-             "%.2fs", len(blocks), max_p, time.time() - sweep_t)
+             "%.2fs", len(blocks), max_p, timing.current().seconds())
     return chosen, mec_vec, exp_vec
 
 
@@ -299,10 +295,10 @@ class BlockDeviceCache:
     shape: int8 alleles + uint8 quals (2 B/cell), uploaded once per
     contig group; weights are rebuilt per dispatch by table lookup."""
 
+    @timing.span("beam.cache_upload")
     def __init__(self, blocks: List[Tuple[object, BlockTensor]], *,
                  device):
         self.device = resolve_device(device)
-        up_t = time.time()
         buckets: Dict[Tuple[int, int],
                       List[Tuple[object, BlockTensor]]] = {}
         for j, bt in blocks:
@@ -330,7 +326,7 @@ class BlockDeviceCache:
             self.dev[(r_pad, s_pad)] = (
                 torch.from_numpy(alleles).to(self.device),
                 torch.from_numpy(quals).to(self.device))
-        timing.add("beam.cache_upload", time.time() - up_t)
+            timing.count("h2d_bytes", alleles.nbytes + quals.nbytes)
 
     def gather(self, key: Tuple[int, int], block_ids: List[object]):
         """[G, r_pad, s_pad] (alleles, weights) for the given blocks, in
@@ -375,6 +371,7 @@ def _sweep_chain(cache: BlockDeviceCache, key, ids, nreads, eps,
     return best, mec
 
 
+@timing.span("dispatch.window")
 def _dispatch_window(chunk, s_pad: int) -> int:
     """The sliding compute window of one dispatch of `chunk`'s blocks at
     s_pad columns, the reference's policy: round_up(span + 128, 256) for
@@ -436,10 +433,8 @@ def _sweep_launch(blocks, options: Options,
             cache.amax[key], fused12=fused)
         return members, ploidy, best, mec
 
-    launch_t = time.time()
-    pending = _launch_sharded(caches, dispatches, launch)
-    timing.add("phase.launch", time.time() - launch_t)
-    return pending
+    with timing.span("phase.launch"):
+        return _launch_sharded(caches, dispatches, launch)
 
 
 def _launch_sharded(caches: List[BlockDeviceCache], dispatches, launch
@@ -462,11 +457,11 @@ def _launch_sharded(caches: List[BlockDeviceCache], dispatches, launch
     return [p for pending in shards for p in pending]
 
 
+@timing.span("phase.wait")
 def _sweep_pull(pending: list):
     """Download one wave's refined assignments and MEC stats: every
     result is copied into pinned host memory without a wait, then the
     host waits once per device, on an event recorded after the copies."""
-    pull_t = time.time()
     flat = [x for _members, _ploidy, best, mec in pending
             for x in (best, *(mec if isinstance(mec, tuple) else (mec,)))]
     hosts = iter(pull(flat))
@@ -486,7 +481,6 @@ def _sweep_pull(pending: list):
         for g, (j, bt) in enumerate(members):
             refined[(j, ploidy)] = best[g, :bt.num_reads]
             stats[(j, ploidy)] = (float(mec[g, 0]), float(mec[g, 1]))
-    timing.add("phase.wait", time.time() - pull_t)
     return refined, stats
 
 
@@ -518,6 +512,7 @@ def _mesh_caches(blocks, cache: Optional[BlockDeviceCache],
     return [by_card[card] for card in cards]
 
 
+@timing.span("phase_instances")
 def phase_instances(blocks: List[Tuple[object, BlockTensor]],
                     options: Options, ploidies,
                     cache: Optional[BlockDeviceCache] = None, *, device
@@ -565,19 +560,19 @@ def phase_instances(blocks: List[Tuple[object, BlockTensor]],
                   key[0], key[1], len(chunk), window, dev)
         return chunk, assigns
 
-    pending = _launch_sharded(caches, dispatches, launch)
-    pull_t = time.time()
-    hosts = pull([assigns for _chunk, assigns in pending])
-    timing.add("beam.pull", time.time() - pull_t)
-    tb_t = time.time()
-    out: Dict[Tuple[object, int], np.ndarray] = {}
-    for (chunk, _assigns), host in zip(pending, hosts):
-        for g, (ploidy, j, bt) in enumerate(chunk):
-            out[(j, ploidy)] = host[g, :bt.num_reads].astype(np.int32)
-    timing.add("beam.traceback", time.time() - tb_t)
+    with timing.span("beam.launch"):
+        pending = _launch_sharded(caches, dispatches, launch)
+    with timing.span("beam.pull"):
+        hosts = pull([assigns for _chunk, assigns in pending])
+    with timing.span("beam.unpack"):
+        out: Dict[Tuple[object, int], np.ndarray] = {}
+        for (chunk, _assigns), host in zip(pending, hosts):
+            for g, (ploidy, j, bt) in enumerate(chunk):
+                out[(j, ploidy)] = host[g, :bt.num_reads].astype(np.int32)
     return out
 
 
+@timing.span("refine_instances")
 def refine_instances(blocks: List[Tuple[object, BlockTensor]],
                      assignments: Dict[Tuple[object, int], np.ndarray],
                      options: Options,
@@ -608,28 +603,28 @@ def refine_instances(blocks: List[Tuple[object, BlockTensor]],
             key = (ploidy, _bucket_reads(bt.num_reads),
                    _bucket_sites(bt.num_sites))
             groups.setdefault(key, []).append((j, bt))
-    launch_t = time.time()
     pending = []
-    for (ploidy, *shape), members in groups.items():
-        key = tuple(shape)
-        for chunk in _chunks(members, key, options):
-            assigns = np.zeros((len(chunk), key[0]), np.int32)
-            nreads = np.array([bt.num_reads for _j, bt in chunk], np.int32)
-            if ploidy > 1:
-                for g, (j, bt) in enumerate(chunk):
-                    assigns[g, :bt.num_reads] = assignments[(j, ploidy)]
-            eps = np.full(len(chunk), options.epsilon, np.float32)
-            alleles, weights = cache.gather(key, [j for j, _bt in chunk])
-            best, mec, _diff = upem_optimize_device(
-                alleles, weights, upload(assigns, dev), upload(nreads, dev),
-                upload(eps, dev), ploidy, max_alleles=cache.amax[key],
-                device=dev)
-            pending.append((chunk, ploidy, best, mec))
-    timing.add("upem.launch", time.time() - launch_t)
-    pull_t = time.time()
-    hosts = iter(pull([x for _c, _p, best, mec in pending
-                       for x in (best, mec)]))
-    timing.add("upem.pull", time.time() - pull_t)
+    with timing.span("upem.launch"):
+        for (ploidy, *shape), members in groups.items():
+            key = tuple(shape)
+            for chunk in _chunks(members, key, options):
+                assigns = np.zeros((len(chunk), key[0]), np.int32)
+                nreads = np.array([bt.num_reads for _j, bt in chunk],
+                                  np.int32)
+                if ploidy > 1:
+                    for g, (j, bt) in enumerate(chunk):
+                        assigns[g, :bt.num_reads] = assignments[(j, ploidy)]
+                eps = np.full(len(chunk), options.epsilon, np.float32)
+                alleles, weights = cache.gather(key,
+                                                [j for j, _bt in chunk])
+                best, mec, _diff = upem_optimize_device(
+                    alleles, weights, upload(assigns, dev),
+                    upload(nreads, dev), upload(eps, dev), ploidy,
+                    max_alleles=cache.amax[key], device=dev)
+                pending.append((chunk, ploidy, best, mec))
+    with timing.span("upem.pull"):
+        hosts = iter(pull([x for _c, _p, best, mec in pending
+                           for x in (best, mec)]))
     refined: Dict[Tuple[object, int], np.ndarray] = {}
     stats: Dict[Tuple[object, int], Tuple[float, float]] = {}
     for chunk, ploidy, _best, _mec in pending:

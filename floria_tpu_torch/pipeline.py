@@ -18,7 +18,6 @@ import logging
 import os
 import shutil
 import threading
-import time
 from typing import Dict, List, Optional
 
 from . import fragops, threads, timing
@@ -79,6 +78,7 @@ def _warm_imports() -> None:
     threading.Thread(target=_load, daemon=True).start()
 
 
+@timing.span("pipeline.run")
 def run(options: Options, *, device) -> None:
     """Phase every eligible contig of options.bam_file on `device`, a
     device or a block mesh (parallel/mesh.py make_block_mesh, which also
@@ -87,18 +87,17 @@ def run(options: Options, *, device) -> None:
     mesh = make_block_mesh(options.num_devices, device=device)
     options.validate()
     threads.set_num_threads(options.num_threads)
-    timing.reset()
-    _warm_imports()
-    t0 = time.time()
     log.info("Preprocessing VCF/Reference")
-    contigs = bamlib.get_contigs_to_phase(options.bam_file)
-    main_bam = open_bam(options.bam_file,
-                        restrict=options.list_to_phase or None)
-    short_bam = (open_bam(options.short_bam_file)
-                 if options.short_bam_file else None)
-    vcf_profile = read_vcf(options.vcf_file, contigs)
-    fasta = (FastaFile(options.reference_fasta)
-             if options.reference_fasta else None)
+    with timing.span("pipeline.open"):
+        _warm_imports()
+        contigs = bamlib.get_contigs_to_phase(options.bam_file)
+        main_bam = open_bam(options.bam_file,
+                            restrict=options.list_to_phase or None)
+        short_bam = (open_bam(options.short_bam_file)
+                     if options.short_bam_file else None)
+        vcf_profile = read_vcf(options.vcf_file, contigs)
+        fasta = (FastaFile(options.reference_fasta)
+                 if options.reference_fasta else None)
 
     eligible = []
     warn_first = True
@@ -159,7 +158,7 @@ def run(options: Options, *, device) -> None:
             except Exception:
                 log.exception("Deferred join failed during unwind.")
         raise
-    log.info("Total time taken is %.2fs", time.time() - t0)
+    log.info("Total time taken is %.2fs", timing.current().seconds())
 
 
 def _run_group(group: List[str], main_bam, short_bam,
@@ -168,100 +167,99 @@ def _run_group(group: List[str], main_bam, short_bam,
                async_join: bool = False):
     """Process one contig group; with async_join the join/outputs run on
     a worker thread and a wait-callable is returned."""
-    t0 = time.time()
-    device = mesh[0]
-    pool = RealignPool() if fasta is not None else None
-    collected = []
-    for contig in group:
-        cv = vcf_profile.get(contig)
-        ref_seq = fasta.fetch(contig) if fasta is not None else None
-        contig_out_dir = os.path.join(options.out_dir, contig)
-        if os.path.exists(contig_out_dir):
-            done = os.path.join(contig_out_dir, f"{contig}.vartigs")
-            if options.resume and os.path.exists(done):
-                log.info("Contig %s already phased; --resume skips it.",
-                         contig)
-                continue
-            if options.overwrite:
-                shutil.rmtree(contig_out_dir, ignore_errors=True)
-        log.info("Reading and realigning inputs for contig %s.", contig)
-        col_t = time.time()
-        id_map = collect_contig_records(main_bam, short_bam, cv, options,
-                                        ref_seq, contig,
-                                        realign_pool=pool, device=device)
-        timing.add("ingest.collect", time.time() - col_t)
-        collected.append((contig, contig_out_dir, cv, ref_seq, id_map))
-    if pool is not None:
-        flush_t = time.time()
-        flush_pool(pool, device=device)
-        timing.add("realign_dispatch", time.time() - flush_t)
+    with timing.span("ingest_realign") as ingest_span:
+        device = mesh[0]
+        pool = RealignPool() if fasta is not None else None
+        collected = []
+        for contig in group:
+            cv = vcf_profile.get(contig)
+            ref_seq = fasta.fetch(contig) if fasta is not None else None
+            contig_out_dir = os.path.join(options.out_dir, contig)
+            if os.path.exists(contig_out_dir):
+                done = os.path.join(contig_out_dir, f"{contig}.vartigs")
+                if options.resume and os.path.exists(done):
+                    log.info("Contig %s already phased; --resume skips "
+                             "it.", contig)
+                    continue
+                if options.overwrite:
+                    shutil.rmtree(contig_out_dir, ignore_errors=True)
+            log.info("Reading and realigning inputs for contig %s.",
+                     contig)
+            with timing.span("ingest.collect"):
+                id_map = collect_contig_records(main_bam, short_bam, cv,
+                                                options, ref_seq, contig,
+                                                realign_pool=pool,
+                                                device=device)
+            collected.append((contig, contig_out_dir, cv, ref_seq,
+                              id_map))
+        if pool is not None:
+            with timing.span("realign_dispatch"):
+                flush_pool(pool, device=device)
 
-    states: List[_ContigState] = []
-    fin_t = time.time()
-    for contig, contig_out_dir, cv, ref_seq, id_map in collected:
-        all_frags, frags_without_snps = finalize_frags(id_map, cv,
-                                                       options)
-        log.info("Number of reads passing filtering: %d (%s)",
-                 len(all_frags), contig)
-        if not all_frags:
-            continue
-        os.makedirs(contig_out_dir, exist_ok=True)
-        all_frags = sort_and_renumber(all_frags)
-        for f in all_frags:
-            f.freeze()
-        for f in frags_without_snps:
-            f.freeze()
+        states: List[_ContigState] = []
+        with timing.span("ingest.finalize"):
+            for contig, contig_out_dir, cv, ref_seq, id_map in collected:
+                all_frags, frags_without_snps = finalize_frags(
+                    id_map, cv, options)
+                log.info("Number of reads passing filtering: %d (%s)",
+                         len(all_frags), contig)
+                if not all_frags:
+                    continue
+                os.makedirs(contig_out_dir, exist_ok=True)
+                all_frags = sort_and_renumber(all_frags)
+                for f in all_frags:
+                    f.freeze()
+                for f in frags_without_snps:
+                    f.freeze()
 
-        short_frags: List[Frag] = []
-        if options.hybrid:
-            final_frags, short_frags = fragops.hybrid_correction(
-                all_frags)
-            final_frags = sort_and_renumber(final_frags)
-        else:
-            final_frags = all_frags
-        if options.ignore_monomorphic:
-            final_frags = fragops.remove_monomorphic_allele(
-                final_frags, options.epsilon)
-        debug_dir = (os.path.join(contig_out_dir, "local_parts")
-                     if log.isEnabledFor(logging.DEBUG) else None)
-        states.append(_ContigState(
-            contig=contig, out_dir=contig_out_dir, cv=cv,
-            ref_seq=ref_seq, final_frags=final_frags,
-            frags_without_snps=frags_without_snps,
-            short_frags=short_frags, debug_dir=debug_dir))
-    if not states:
-        return prev_join
-    timing.add("ingest.finalize", time.time() - fin_t)
-    log.info("Reading inputs, realigning time taken %.2fs",
-             time.time() - t0)
-    timing.add("ingest_realign", time.time() - t0)
+                short_frags: List[Frag] = []
+                if options.hybrid:
+                    final_frags, short_frags = fragops.hybrid_correction(
+                        all_frags)
+                    final_frags = sort_and_renumber(final_frags)
+                else:
+                    final_frags = all_frags
+                if options.ignore_monomorphic:
+                    final_frags = fragops.remove_monomorphic_allele(
+                        final_frags, options.epsilon)
+                debug_dir = (os.path.join(contig_out_dir, "local_parts")
+                             if log.isEnabledFor(logging.DEBUG) else None)
+                states.append(_ContigState(
+                    contig=contig, out_dir=contig_out_dir, cv=cv,
+                    ref_seq=ref_seq, final_frags=final_frags,
+                    frags_without_snps=frags_without_snps,
+                    short_frags=short_frags, debug_dir=debug_dir))
+        if not states:
+            return prev_join
+        log.info("Reading inputs, realigning time taken %.2fs",
+                 ingest_span.seconds())
 
-    phasing_t = time.time()
-    results_by_contig = phase_contigs_blocks(
-        [(st.contig, st.final_frags, st.cv.genome_pos, st.debug_dir)
-         for st in states], options, device=mesh)
-    log.info("Phasing time taken %.2fs", time.time() - phasing_t)
-    timing.add("phasing", time.time() - phasing_t)
+    with timing.span("phasing") as phasing_span:
+        results_by_contig = phase_contigs_blocks(
+            [(st.contig, st.final_frags, st.cv.genome_pos, st.debug_dir)
+             for st in states], options, device=mesh)
+        log.info("Phasing time taken %.2fs", phasing_span.seconds())
 
     if prev_join is not None:
         prev_join()
 
     def _join_all():
-        join_t = time.time()
-        for st in states:
-            _finish_contig(st, results_by_contig.get(st.contig, []),
-                           options)
-        timing.add("join_outputs", time.time() - join_t)
+        with timing.span("join_outputs"):
+            for st in states:
+                _finish_contig(st, results_by_contig.get(st.contig, []),
+                               options)
 
     if not async_join:
         _join_all()
         return None
 
     box: Dict[str, BaseException] = {}
+    parent = timing.current()
 
     def _worker():
         try:
-            _join_all()
+            with timing.adopt(parent):
+                _join_all()
         except BaseException as e:  # re-raised at the wait point
             box["err"] = e
 
@@ -269,7 +267,8 @@ def _run_group(group: List[str], main_bam, short_bam,
     th.start()
 
     def _wait():
-        th.join()
+        with timing.span("join.wait"):
+            th.join()
         if "err" in box:
             raise box["err"]
 
@@ -292,29 +291,26 @@ def _finish_contig(st: _ContigState, results: List[LocalBlockResult],
                       contig_len)
         return
 
-    graph_t = time.time()
-    csr = FragCsr(final_frags)
-    hap_graph: List[List[HapNode]] = []
-    for res in results:
-        column = len(hap_graph)
-        block_nodes = []
-        for row, ids in enumerate(res.part_frag_ids):
-            block_nodes.append(build_hap_node(final_frags, ids,
-                                              res.snp_range, column, row,
-                                              csr=csr))
-        hap_graph.append(block_nodes)
-    assign_ids(hap_graph)
-    update_hap_graph(hap_graph, final_frags, csr=csr)
-    timing.add("join.hap_graph", time.time() - graph_t)
+    with timing.span("join.hap_graph"):
+        csr = FragCsr(final_frags)
+        hap_graph: List[List[HapNode]] = []
+        for res in results:
+            column = len(hap_graph)
+            block_nodes = []
+            for row, ids in enumerate(res.part_frag_ids):
+                block_nodes.append(build_hap_node(final_frags, ids,
+                                                  res.snp_range, column,
+                                                  row, csr=csr))
+            hap_graph.append(block_nodes)
+        assign_ids(hap_graph)
+        update_hap_graph(hap_graph, final_frags, csr=csr)
 
-    lp_t = time.time()
-    flow_vec = solve_lp_graph(hap_graph)
-    log.info("Flow solved in time %.2fs", time.time() - lp_t)
-    timing.add("join.lp", time.time() - lp_t)
+    with timing.span("join.lp") as lp_span:
+        flow_vec = solve_lp_graph(hap_graph)
+        log.info("Flow solved in time %.2fs", lp_span.seconds())
 
-    paths_t = time.time()
-    haplogroups = get_disjoint_paths(hap_graph, flow_vec)
-    timing.add("join.paths", time.time() - paths_t)
+    with timing.span("join.paths"):
+        haplogroups = get_disjoint_paths(hap_graph, flow_vec)
     if log.isEnabledFor(logging.DEBUG):
         from .graph.paths import write_pet_graph_dot
         write_pet_graph_dot(hap_graph,
@@ -331,16 +327,14 @@ def _finish_contig(st: _ContigState, results: List[LocalBlockResult],
         combined.append(f)
     csr_all = csr if not st.short_frags else FragCsr(combined)
 
-    final_t = time.time()
-    parts, ranges = process_reads_for_final_parts(
-        haplogroups, combined, st.short_frags, options, csr=csr_all)
-    snpless = frags_in_snpless_gaps(ranges, snp_to_genome_pos,
-                                    st.frags_without_snps,
-                                    options.block_length, final_frags)
-    timing.add("join.final_parts", time.time() - final_t)
+    with timing.span("join.final_parts"):
+        parts, ranges = process_reads_for_final_parts(
+            haplogroups, combined, st.short_frags, options, csr=csr_all)
+        snpless = frags_in_snpless_gaps(ranges, snp_to_genome_pos,
+                                        st.frags_without_snps,
+                                        options.block_length, final_frags)
 
-    write_t = time.time()
-    write_outputs(parts, ranges, st.out_dir, contig, combined,
-                  snp_to_genome_pos, options, snpless, contig_len,
-                  csr=csr_all)
-    timing.add("join.write", time.time() - write_t)
+    with timing.span("join.write"):
+        write_outputs(parts, ranges, st.out_dir, contig, combined,
+                      snp_to_genome_pos, options, snpless, contig_len,
+                      csr=csr_all)
