@@ -239,6 +239,7 @@ def adaptive_sweep(blocks, options: Options,
     exp_vec = {key: np.zeros(max_p) for key, _bt in blocks}
     chosen: Dict[object, Tuple[int, np.ndarray]] = {}
     prev_assign: Dict[object, np.ndarray] = {}
+    spans: dict = {}                # read_columns by key, for this call
     active = blocks
     if max_p >= 2:
         schedule = [(1, 2)] + list(range(3, max_p + 1))
@@ -247,7 +248,7 @@ def adaptive_sweep(blocks, options: Options,
     for entry in schedule:
         if not active:
             break
-        pending = _sweep_launch(active, options, caches, [entry])
+        pending = _sweep_launch(active, options, caches, [entry], spans)
         levels = entry if isinstance(entry, tuple) else (entry,)
         refined_p, stats_p = _sweep_pull(pending)
         log.debug("sweep level %s: %d blocks", entry, len(active))
@@ -372,33 +373,51 @@ def _sweep_chain(cache: BlockDeviceCache, key, ids, nreads, eps,
 
 
 @timing.span("dispatch.window")
-def _dispatch_window(chunk, s_pad: int) -> int:
+def _dispatch_window(chunk, s_pad: int, spans: dict) -> int:
     """The sliding compute window of one dispatch of `chunk`'s blocks at
     s_pad columns, the reference's policy: round_up(span + 128, 256) for
     the chunk's longest read span (BlockTensor.max_read_span), only for
     a >= 4x shrink of the site axis, else 0 (full width). A window is
     checked on the host, block by block, to hold every read, as K1
-    requires (`beam_kernel.check_windows_host`)."""
-    cols = [beam_kernel.read_columns(bt.alleles, bt.num_reads)
-            for _j, bt in chunk]
-    span = max(int((last - first)[last >= 0].max(initial=0)) + 1
-               for first, last in cols)
-    window = round_up(span + 128, 256)
-    if window * 4 > s_pad:
+    requires (`beam_kernel.check_windows_host`).
+
+    `spans` is the caller's table of each block's `read_columns` by
+    block key, filled here as blocks are first read, and kept for one
+    call of the caller only. The blocks are read in order until one read
+    rules a window out: on long reads the first block decides. Counts
+    the blocks read (`window_blocks`)."""
+    # The longest span a window allows: round_up(span + 128, 256) * 4 <=
+    # s_pad. Every span is at least 1, so below 1 no block need be read.
+    limit = s_pad // 1024 * 256 - 128
+    span, read = 1, 0
+    for j, bt in chunk:
+        if span > limit:
+            break
+        if j not in spans:
+            spans[j] = beam_kernel.read_columns(bt.alleles, bt.num_reads)
+            read += 1
+        first, last = spans[j]
+        span = max(span, int((last - first)[last >= 0].max(initial=0)) + 1)
+    timing.count("window_blocks", read)
+    if span > limit:
         return 0
-    for first, last in cols:
-        beam_kernel.check_windows_host(first, last, s_pad, window)
+    window = round_up(span + 128, 256)
+    for j, _bt in chunk:
+        beam_kernel.check_windows_host(*spans[j], s_pad, window)
     return window
 
 
 def _sweep_launch(blocks, options: Options,
-                  caches: List[BlockDeviceCache], ploidies) -> list:
+                  caches: List[BlockDeviceCache], ploidies,
+                  spans: Optional[dict] = None) -> list:
     """Enqueue one wave of chained beam -> UPEM dispatches for every
     (block, ploidy in ploidies) instance, per shape bucket, in chunks of
     the dispatch cap. On a card nothing here waits for it: the results
     stay on the device until _sweep_pull, and `phase.launch` times the
     enqueueing only. Each dispatch's windows are checked on the host,
-    from its blocks, before anything is enqueued.
+    from its blocks, before anything is enqueued; `spans` is the
+    caller's table of the blocks' read columns (`_dispatch_window`), a
+    new one when not given.
 
     Over a mesh of more than one shard (`caches`, one per shard), each
     dispatch splits as `_launch_sharded` splits it, and each shard's
@@ -417,7 +436,9 @@ def _sweep_launch(blocks, options: Options,
         # of one wave.
         ploidies = [q for p in ploidies
                     for q in (p if isinstance(p, tuple) else (p,))]
-    dispatches = [(chunk, ploidy, key, _dispatch_window(chunk, key[1]))
+    spans = {} if spans is None else spans
+    dispatches = [(chunk, ploidy, key, _dispatch_window(chunk, key[1],
+                                                        spans))
                   for ploidy in ploidies
                   for key, members in groups.items()
                   for chunk in _chunks(members, key, options)]
@@ -540,8 +561,9 @@ def phase_instances(blocks: List[Tuple[object, BlockTensor]],
             key = (_bucket_reads(bt.num_reads), _bucket_sites(bt.num_sites))
             groups.setdefault(key, []).append((ploidy, j, bt))
     max_ploidy = max(ploidies) if ploidies else 1
+    spans: dict = {}
     dispatches = [(chunk, key, _dispatch_window(
-        [(j, bt) for _p, j, bt in chunk], key[1]))
+        [(j, bt) for _p, j, bt in chunk], key[1], spans))
         for key, members in groups.items()
         for chunk in _chunks(members, key, options)]
 

@@ -6,7 +6,9 @@ reference, bitwise: `upem_eval_plain`'s three modes against
 climb's while_loop body; the fixed-round loop against
 `upem_optimize_device` (including instances that stop in different
 rounds); one instance alone against the batch; the masked move function;
-and the sweep's host-side window check against K1's device check."""
+the sweep's host-side window check against K1's device check; and the
+dispatch window's decision against the reference's policy on every
+member, with the blocks it reads per call (`window_blocks`)."""
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +17,10 @@ import pytest
 import torch
 
 from floria_tpu.kernels import upem_batch as U
-from floria_tpu_torch import constants
+from floria_tpu_torch import constants, timing
 from floria_tpu_torch.kernels import beam as TB
 from floria_tpu_torch.kernels import upem_batch as TU
+from floria_tpu_torch.kernels.blocktensor import BlockTensor, round_up
 from test_torch_upem import CASES, _batch
 
 # One intra-op thread: the suite runs several pytest workers on one
@@ -241,7 +244,6 @@ def test_host_window_check_raises_where_device_check_raises(seed):
 def test_dispatch_window_is_the_reference_policy(s_pad):
     """The sweep's window (span from `read_columns`) equals the
     reference's policy on BlockTensor.max_read_span."""
-    from floria_tpu_torch.kernels.blocktensor import BlockTensor, round_up
     from floria_tpu_torch.phase.local import _dispatch_window
 
     rng = np.random.default_rng(s_pad)
@@ -258,6 +260,205 @@ def test_dispatch_window_is_the_reference_policy(s_pad):
                         256)
         if want * 4 > s_pad:
             want = 0
-        assert _dispatch_window(chunk, s_pad) == want
+        assert _dispatch_window(chunk, s_pad, {}) == want
         windows.add(want)
     assert windows != {0} or s_pad == 512
+
+
+def _span_block(rng, S, max_span, *, long_span=0, reverse=False):
+    """A block of S columns whose reads span 1..max_span columns, sorted
+    by start unless `reverse` (then in descending order), with one read
+    of `long_span` columns when given; some rows past num_reads."""
+    R = int(rng.integers(4, 24))
+    al = np.full((R, S), -1, np.int8)
+    starts = np.sort(rng.integers(0, S - max_span, R))
+    starts[-1] = max(starts[-1], 128)
+    if reverse:
+        starts = starts[::-1]
+    for r, s0 in enumerate(starts):
+        al[r, s0:s0 + int(rng.integers(1, max_span + 1))] = rng.integers(0, 2)
+    if long_span:
+        r = int(rng.integers(0, R))
+        al[r] = -1
+        s0 = int(rng.integers(0, S - long_span + 1))
+        al[r, s0:s0 + long_span] = 1
+    nr = R if long_span or reverse else int(rng.integers(R // 2, R + 1))
+    return BlockTensor(frag_ids=np.arange(nr), lo=1, num_sites=S,
+                       num_reads=nr, alleles=al, weights=al * 0.0,
+                       snp_range=(1, S))
+
+
+def _full_scan_window(chunk, s_pad):
+    """The reference's window policy over every member of the chunk, read
+    in full: round_up(longest max_read_span + 128, 256), 0 below a 4x
+    shrink of s_pad, and each block's window checked on the host."""
+    window = round_up(max(bt.max_read_span() for _j, bt in chunk) + 128,
+                      256)
+    if window * 4 > s_pad:
+        return 0
+    for _j, bt in chunk:
+        TB.check_windows_host(*TB.read_columns(bt.alleles, bt.num_reads),
+                              s_pad, window)
+    return window
+
+
+def _window_decision(fn):
+    """(fn()'s result or the ValueError it raised, the `window_blocks`
+    counts of the `dispatch.window` spans it recorded)."""
+    last = max((r.id for r in timing.records()), default=0)
+    try:
+        got = fn()
+    except ValueError as exc:
+        got = ValueError(str(exc))
+    counts = [r.counts["window_blocks"] for r in timing.records()
+              if r.id > last and r.name == "dispatch.window"]
+    return got, counts
+
+
+def _same_decision(a, b):
+    if isinstance(a, ValueError) or isinstance(b, ValueError):
+        return type(a) is type(b) and str(a) == str(b)
+    return a == b
+
+
+# What each chunk of the decision's cases holds, and what it must decide
+# at s_pad >= 1,024 ("window", 0 or a raise).
+WINDOW_CASES = {
+    "short": "window",          # every read inside the window's limit
+    "long": 0,                  # the first block rules a window out
+    "last_rules": 0,            # only the last block's read rules it out
+    "duplicates": "window",     # one block at several ploidies
+    "unsorted": "raises",       # reads in descending order: the check
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+@pytest.mark.parametrize("s_pad", [512, 1024, 1536, 2048])
+def test_dispatch_window_equals_the_full_scan(s_pad, case):
+    """`_dispatch_window` (the blocks read once through the call's table,
+    stopping at the first block that rules a window out) returns the
+    window, or raises, as the reference's policy over every member does;
+    it reads each distinct block at most once, and none again from a
+    table that holds them."""
+    from floria_tpu_torch.phase.local import _dispatch_window
+
+    limit = s_pad // 1024 * 256 - 128       # the longest span a window
+    short = max(limit, 100)                 # allows (at 512: none)
+    rng = np.random.default_rng(s_pad * 7 + len(case))
+    for _trial in range(4):
+        S = s_pad - int(rng.integers(0, 200))
+        blocks = [(j, _span_block(rng, S, short,
+                                  reverse=case == "unsorted"))
+                  for j in range(5)]
+        if case == "long":
+            blocks[0] = (0, _span_block(rng, S, short, long_span=max(
+                limit + 1 + int(rng.integers(0, 64)), 300)))
+        if case == "last_rules":
+            blocks[-1] = (4, _span_block(rng, S, short, long_span=max(
+                limit + 1, 300)))
+        chunk = (blocks + blocks[1:4] + blocks[:2]
+                 if case == "duplicates" else blocks)
+        want, _ = _window_decision(lambda: _full_scan_window(chunk, s_pad))
+        spans = {}
+        got, (n,) = _window_decision(
+            lambda: _dispatch_window(chunk, s_pad, spans))
+        assert _same_decision(got, want), (case, s_pad, got, want)
+        assert n == len(spans)
+        again, (n,) = _window_decision(
+            lambda: _dispatch_window(chunk, s_pad, spans))
+        assert _same_decision(again, want) and n == 0
+        expect = WINDOW_CASES[case] if s_pad >= 1024 else 0
+        if expect == "raises":
+            assert isinstance(want, ValueError)
+        else:
+            assert (want > 0) == (expect == "window")
+        assert len(spans) == (0 if s_pad < 1024 else
+                              1 if case == "long" else len(blocks))
+
+
+def _api_blocks(n, span, seed, S=1000, R=12):
+    """n blocks of R reads of `span` columns over S columns (the s_pad
+    1,024 bucket) from two strains, sorted by start, phred 20: a window
+    applies at span <= 128 and is ruled out above."""
+    from floria_tpu_torch.frag import phred_weight
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(n):
+        strains = rng.integers(0, 2, (2, S))
+        al = np.full((R, S), -1, np.int8)
+        quals = np.zeros((R, S), np.uint8)
+        for r, s0 in enumerate(np.sort(rng.integers(0, S - span, R))):
+            hap = strains[rng.integers(0, 2), s0:s0 + span].copy()
+            err = rng.random(span) < 0.02
+            hap[err] = 1 - hap[err]
+            al[r, s0:s0 + span] = hap
+            quals[r, s0:s0 + span] = 20
+        out.append((j, BlockTensor(
+            frag_ids=np.arange(R, dtype=np.int64), lo=1, num_sites=S,
+            num_reads=R, alleles=al, weights=phred_weight(quals),
+            snp_range=(1, S), quals=quals)))
+    return out
+
+
+@pytest.fixture
+def spied_windows(monkeypatch):
+    """The `window` of every beam dispatch launched; dispatches of at
+    most three instances at R 16, S 1,024."""
+    from floria_tpu_torch.phase import local as TL
+
+    monkeypatch.setenv("FLORIA_SWEEP_CAP_CELLS", str(3 * 16 * 1024))
+    windows = []
+    real = TL.beam_kernel.beam_search_traceback
+
+    def spy(*args, **kw):
+        windows.append(kw["window"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TL.beam_kernel, "beam_search_traceback", spy)
+    return windows
+
+
+@pytest.mark.parametrize("span", [100, 300])
+def test_phase_instances_reads_each_block_once_a_call(span, spied_windows):
+    """At ploidies 2..5, the call's `window_blocks` are the distinct
+    blocks where windows apply (each block once, not once per ploidy),
+    at most one a dispatch where the first block rules a window out; a
+    second call on the same blocks reads and answers as the first."""
+    from floria_tpu_torch.options import Options
+    from floria_tpu_torch.phase import local as TL
+
+    blocks = _api_blocks(4, span, seed=span)
+    opts = Options(epsilon=0.02, max_ploidy=5)
+    calls = [_window_decision(lambda: TL.phase_instances(
+        blocks, opts, [2, 3, 4, 5], device="cpu")) for _ in range(2)]
+    (first, counts), (second, again) = calls
+    assert counts == again and len(counts) == len(spied_windows) // 2 > 4
+    if span <= 128:
+        assert set(spied_windows) == {256}
+        assert sum(counts) == len(blocks)
+    else:
+        assert set(spied_windows) == {0}
+        assert sum(counts) <= len(counts) and max(counts) == 1
+    assert first.keys() == second.keys()
+    for key in first:
+        np.testing.assert_array_equal(first[key], second[key])
+
+
+@pytest.mark.parametrize("span", [100, 300])
+def test_adaptive_sweep_reads_each_block_once(span, spied_windows):
+    """Over all of a sweep's levels, each block's read columns are read
+    at most once, and every block once where windows apply."""
+    from floria_tpu_torch.options import Options
+    from floria_tpu_torch.phase import local as TL
+
+    blocks = _api_blocks(4, span, seed=span + 1)
+    (chosen, _mec, _exp), counts = _window_decision(lambda: TL.adaptive_sweep(
+        blocks, Options(epsilon=0.02, max_ploidy=4), device="cpu"))
+    assert len(chosen) == len(blocks) and len(counts) > 1
+    if span <= 128:
+        assert set(spied_windows) == {256}
+        assert sum(counts) == len(blocks)
+    else:
+        assert set(spied_windows) == {0}
+        assert sum(counts) <= len(blocks)
