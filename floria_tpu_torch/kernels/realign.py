@@ -302,12 +302,24 @@ class SnpRealigner:
         flush_pool(self.pool, device=device)
 
 
+def _to_card(arrays, dev) -> List[torch.Tensor]:
+    """`arrays` as tensors on `dev`, copied synchronously, their bytes
+    counted as `h2d_bytes`. Not `device.upload`: staging K5's ~17 MB of
+    jobs through pinned memory made the `realign.device.nw_best` span
+    slower on an H100 (52 against 44 ms, medians of 5 flushes)."""
+    timing.count("h2d_bytes", sum(x.nbytes for x in arrays))
+    return [torch.from_numpy(x).to(dev) for x in arrays]
+
+
 def flush_pool(pool: RealignPool, *, device) -> None:
     """Resolve every queued job and write the calls into the frags:
     native Hamming precheck, dedup of identical problems, then the NW of
     each partition on the C++ Gotoh or `nw_best` on `device` (module
     note). Raises when the native library is unavailable (there is no
-    other path)."""
+    other path). Counts, in `realign.host_prep`: `realign_jobs` queued
+    and `nw_left` after the precheck; in each `realign.device.nw_best`:
+    `nw_jobs` handed to `nw_best`, `nw_alleles` they try (min(nal,
+    a_max) each) and the `h2d_bytes` of its uploads."""
     if not pool._targets:
         return
     dev = resolve_device(device)
@@ -327,6 +339,8 @@ def flush_pool(pool: RealignPool, *, device) -> None:
         # Jobs the Hamming precheck could not prove go to the NW; reads
         # with identical windows at one SNP are one problem, solved once.
         rest = np.nonzero(best < 0)[0]
+        timing.count("realign_jobs", len(si))
+        timing.count("nw_left", len(rest))
         if len(rest):
             uniq_local, inv = native.dedup_jobs(q[rest], si[rest])
             uniq = rest[uniq_local]
@@ -345,11 +359,12 @@ def flush_pool(pool: RealignPool, *, device) -> None:
                                                     al_tab)
                     continue
                 with timing.span("realign.device.nw_best"):
+                    timing.count("nw_jobs", len(idx))
+                    timing.count("nw_alleles",
+                                 int(np.minimum(nal[idx], a_max).sum()))
                     if tables is None:  # uploaded once per flush
-                        tables = [torch.from_numpy(x).to(dev)
-                                  for x in (ref_tab, al_tab)]
-                    jobs = [torch.from_numpy(x).to(dev)
-                            for x in (q[idx], si[idx], nal[idx])]
+                        tables = _to_card((ref_tab, al_tab), dev)
+                    jobs = _to_card((q[idx], si[idx], nal[idx]), dev)
                     best[idx] = nw_best(*jobs, *tables,
                                         a_max).cpu().numpy()
             best[rest] = best[uniq][inv]
