@@ -66,7 +66,10 @@ each; any failure raises (exit code != 0):
                 every block of phase 4's `ecoli2` sweep; on the bench
                 shapes also upem_eval_batch (K6's evaluation kernel) and
                 optimize_many, equal to refine_instances; per case its
-                launches counted from 0, every K1 dispatch and climb held
+                launches counted from 0, both calls' launches under sync
+                debug mode "error" and one host wait per pull (SyncCheck,
+                as the sweep's in phases 4 and 7c), every K1 dispatch and
+                climb held
                 to its plain version on the card, and every (block,
                 ploidy) to the JAX package's digests in
                 tests/data/instances_golden.json; then bench.py's kernel
@@ -1140,11 +1143,13 @@ def hold_decisions(config, got, sim_dir, run=None):
 
 
 class SyncCheck:
-    """While active, every sweep level's launch (`_sweep_launch`) runs
-    under torch.cuda.set_sync_debug_mode("error"), so any host wait in it
-    raises, and every level's pull (`_sweep_pull`) counts its host
-    waits: CUDA event synchronizations plus any synchronizing call
-    PyTorch reports (sync debug mode "warn")."""
+    """While active, every launch of phase/local.py's one dispatch path
+    (`_launch_sharded`: a sweep wave, a `phase_instances` or a
+    `refine_instances` call) runs under
+    torch.cuda.set_sync_debug_mode("error"), so any host wait in it
+    raises, and every pull (`_pull`) counts its host waits: CUDA event
+    synchronizations plus any synchronizing call PyTorch reports (sync
+    debug mode "warn")."""
 
     def __init__(self):
         from floria_tpu_torch.phase import local
@@ -1154,8 +1159,8 @@ class SyncCheck:
         self._events = 0
 
     def __enter__(self):
-        self._launch = self.local._sweep_launch
-        self._pull = self.local._sweep_pull
+        self._launch = self.local._launch_sharded
+        self._pull = self.local._pull
         self._sync = torch.cuda.Event.synchronize
 
         def sync(ev):
@@ -1169,13 +1174,13 @@ class SyncCheck:
             finally:
                 torch.cuda.set_sync_debug_mode(0)
 
-        def pull(pending):
+        def pull(*args, **kw):
             n0 = self._events
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
                 try:
-                    out = self._pull(pending)
+                    out = self._pull(*args, **kw)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
             self.pull_waits.append(self._events - n0 + sum(
@@ -1183,13 +1188,13 @@ class SyncCheck:
             return out
 
         torch.cuda.Event.synchronize = sync
-        self.local._sweep_launch, self.local._sweep_pull = launch, pull
+        self.local._launch_sharded, self.local._pull = launch, pull
         return self
 
     def __exit__(self, *exc):
         torch.cuda.Event.synchronize = self._sync
-        self.local._sweep_launch = self._launch
-        self.local._sweep_pull = self._pull
+        self.local._launch_sharded = self._launch
+        self.local._pull = self._pull
 
     def summary(self):
         return {"levels": len(self.pull_waits), "launch_host_waits": 0,
@@ -2315,19 +2320,25 @@ def instances_phase(dev, ecoli2):
     k1_err = climb_err = 0.0
     for case, blocks, opts in cases:
         _build.LAUNCHES.clear()
+        sync = SyncCheck() if dev.type == "cuda" else None
         with DispatchRecorder() as beams, ClimbRecorder() as climbs:
             t0 = time.perf_counter()
-            beam = local.phase_instances(blocks, opts, bench.PLOIDIES,
-                                         device=dev)
-            refined, stats = local.refine_instances(
-                blocks, beam, opts, ploidies=range(1, opts.max_ploidy + 1),
-                device=dev)
+            with sync or contextlib.nullcontext():
+                beam = local.phase_instances(blocks, opts, bench.PLOIDIES,
+                                             device=dev)
+                refined, stats = local.refine_instances(
+                    blocks, beam, opts,
+                    ploidies=range(1, opts.max_ploidy + 1), device=dev)
             wall = time.perf_counter() - t0
             n_beam, n_climb = len(beams.beam), len(climbs.climbs)
             api = None
             if case.startswith("bench"):
                 api = instance_api_checks(dev, blocks, opts, beam, refined,
                                           stats)
+        # One pull per call, each waiting once on the one card.
+        if sync is not None and sync.pull_waits != [1, 1]:
+            raise AssertionError(f"instances {case}: host waits per pull "
+                                 f"{sync.pull_waits}, expected [1, 1]")
         launches = dict(_build.LAUNCHES)
         want = {"beam_scan": n_beam, "upem_moves": 0,
                 "upem_climb": n_climb + (0 if api is None else api[1]),
@@ -2357,13 +2368,14 @@ def instances_phase(dev, ecoli2):
                                     for p in d[0][4].tolist()}),
                "climb_ploidies": climb_ploidies, "launches": launches,
                "wall_s": wall, "plain_on_card_s": plain_s,
+               "sync_check": sync and sync.summary(),
                "plain_bitwise_equal": ["beam records", "assignments",
                                        "climb best, mec, diff"],
                "golden_compared": compared, "golden_differing": differing}
         emit(rec)
         summary["cases"][case] = {k: rec[k] for k in (
             "beam_instances", "climb_instances", "launches", "wall_s",
-            "golden_compared", "golden_differing")}
+            "sync_check", "golden_compared", "golden_differing")}
     for G, R, S in BENCH_SHAPES:
         rps = bench.measure_kernel(make_workload(G, R, S), False, device=dev)
         summary["cases"][f"bench {G}x{R}x{S}"].update(

@@ -20,21 +20,19 @@ the reads' reference ends and their bases at the sampled columns from
 the C++ CIGAR walk (`floria_extract_sites`, given all 16 BAM base codes
 as each column's alleles, so the allele index it returns is the base's
 code). No read's sequence or quals are unpacked. Where the native path
-is unavailable (the test `pipeline.open_bam` makes), the pure decoder
-(`bam.BamFile`) gives the same estimate.
+is unavailable (`fastingest.open_native`, which `pipeline.open_bam`
+also uses), the pure decoder (`bam.BamFile`) gives the same estimate.
 """
 
 from __future__ import annotations
 
-import logging
 from typing import Iterator, Tuple
 
 import numpy as np
 
 from .. import constants, native, timing
 from . import bam as bamlib
-
-log = logging.getLogger(__name__)
+from .fastingest import open_native
 
 STRIDE = 1000
 # Every BAM base code, as each sampled column's allele list.
@@ -165,20 +163,8 @@ def _native_contigs(fb) -> Iterator[tuple]:
         yield len(sampled), col, base, read_len[lo:hi][rec]
 
 
-def _open_native(bam_path: str):
-    """The native scanner's decode of the BAM, or None where the native
-    path is unavailable (as `pipeline.open_bam` decides)."""
-    try:
-        from .fastingest import FastBam
-        return FastBam(bam_path)
-    except Exception as e:
-        log.debug("native BAM path unavailable (%s); using pure decoder",
-                  e)
-        return None
-
-
 def l_epsilon_auto_detect(bam_path: str) -> Tuple[int, float]:
-    fb = _open_native(bam_path)
+    fb = open_native(bam_path)
     if fb is None:
         timing.count("estimate_records", 0)
         contigs = _pure_contigs(bam_path)

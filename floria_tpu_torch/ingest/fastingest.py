@@ -13,7 +13,7 @@ import ctypes
 import logging
 import os
 import struct
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -373,6 +373,18 @@ def _scan(lib, ptr, length, off, *arrays):
             for a in arrays]
     ptrs += [None] * (8 - len(ptrs))
     return lib.floria_bam_scan(ptr, length, off, *ptrs)
+
+
+def open_native(path: str, restrict=None) -> Optional[FastBam]:
+    """The native scanner's decode of the BAM at `path` (`FastBam`, with
+    its `restrict`), or None where the native path is unavailable: the
+    one decision of the pipeline's ingest and the `-e/-l` pass."""
+    try:
+        return FastBam(path, restrict=restrict)
+    except Exception as e:
+        log.debug("native BAM path unavailable (%s); using pure decoder",
+                  e)
+        return None
 
 
 def passed_check_vec(flags: np.ndarray, mapq: np.ndarray,

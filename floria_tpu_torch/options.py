@@ -69,7 +69,7 @@ class Options:
     # ("auto" probes the device link once: small cap on a local chip,
     # large on a high-latency link; or an explicit integer). Env
     # FLORIA_SWEEP_CAP_CELLS overrides both. Output-invariant either way
-    # (phase/local.py:_sweep_launch).
+    # (phase/local.py:_plan).
     sweep_cap: str = "auto"
 
     def __post_init__(self) -> None:

@@ -99,7 +99,7 @@ def beam_search_sharded(mesh, alleles, weights, num_reads, epsilon,
     reference's six outputs) and the [G, R] traceback assignments.
 
     The twin of the reference's API; the port's sweep does not call it:
-    phase/local.py `_sweep_launch` splits each dispatch over the mesh
+    phase/local.py `_launch_sharded` splits each dispatch over the mesh
     itself and keeps the beam result on each shard's device for UPEM."""
     if max_alleles is None:
         max_alleles = constants.MAX_ALLELES

@@ -1,28 +1,21 @@
 """Local phasing engine: the adaptive per-block ploidy sweep on torch.
 
 Port of floria_tpu/phase/local.py's main path (phase_contigs_blocks ->
-adaptive_sweep -> _sweep_launch/_sweep_pull). Every (block, ploidy)
-instance of a contig group runs as shape-bucketed batches on one device,
-or split over the shards of a block mesh (parallel/mesh.py); each sweep
-level is one chain per bucket: gather -> weights -> beam scan +
-traceback (K1) -> UPEM hill-climb (K6 and K4) -> unit-weight MEC stats
-(K6). On a card a level's chains are enqueued without a host wait
-(`_sweep_launch`: uploads from pinned memory, windows checked on the
-host) and pulled once per level and device (`_sweep_pull`), as the
-reference launches each level's jitted chains asynchronously and waits
-in its pull. The stopping rules replay on the host, level by level, so
-the chosen ploidies and partitions equal the reference's sequential
-early exit (graph_processing.rs:198-252).
-
-The reference's instance API is here too: `phase_instances` (the beam
-of every (block, ploidy) instance, mixed ploidies in one K1 dispatch per
-shape bucket), `refine_instances` (the climb and unit MEC of every
-(block, ploidy), ploidy 1 included) and `phase_contig_blocks` (one
-contig). Like the sweep they split each bucket into dispatches of the
-dispatch cap, never pad the batch, enqueue every dispatch and pull once;
-`phase_instances` also splits each dispatch over a block mesh, as the
-sweep does, and `refine_instances` runs on one device, as the
-reference's does.
+adaptive_sweep) and of its instance API (`phase_instances`,
+`refine_instances`, `phase_contig_blocks`). Both run every (block,
+ploidy) instance on one dispatch path: `_plan` groups the instances by
+shape bucket (`_bucket`) into dispatches of the dispatch cap, each with
+its window worked out on the host; `_launch_sharded` enqueues each
+dispatch on its device, or split over the shards of a block mesh
+(parallel/mesh.py), through a stage: `_beam` (gather -> weights -> beam
+scan + traceback, K1), `_climb` (UPEM hill-climb, K6 with K4's body
+inside, and unit-weight MEC stats) or the sweep's `_chain` of the two;
+`_pull` waits once per device and unpacks. On a card nothing before the
+pull waits (uploads from pinned memory), as the reference launches its
+jitted chains asynchronously and waits in its pull. The sweep's stopping
+rules replay on the host, level by level (`_sweep_decide`), so the
+chosen ploidies and partitions equal the reference's sequential early
+exit (graph_processing.rs:198-252).
 
 The pure helpers below are copies of the reference's (which cannot be
 imported: its module pulls in jax).
@@ -30,7 +23,9 @@ imported: its module pulls in jax).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import logging
 import os
 from typing import Dict, List, Optional, Tuple
@@ -82,25 +77,14 @@ def mec_threshold(ploidy: int, epsilon: float, sensitivity: int) -> float:
 
 def pick_best_ploidy(mec_vector: np.ndarray, expected_errors: np.ndarray,
                      options: Options) -> int:
-    """Replay of the sweep's stopping logic (graph_processing.rs:198-252)."""
-    max_ploidy = len(mec_vector)
-    best = 1
-    for ploidy in range(1, max_ploidy + 1):
-        best = ploidy
-        m = mec_vector[ploidy - 1]
-        if ploidy > 1:
-            prev = mec_vector[ploidy - 2]
-            with np.errstate(divide="ignore", invalid="ignore"):
-                ratio = m / prev  # inf or nan on zero, like Rust f64
-            threshold = mec_threshold(ploidy, options.epsilon,
-                                      options.ploidy_sensitivity)
-            if not (ratio < threshold):  # nan compares False, like Rust
-                if options.stopping_heuristic:
-                    best = ploidy - 1
-                    break
-        if m < expected_errors[ploidy - 1]:
-            break
-    return best
+    """Replay of the sweep's stopping logic (graph_processing.rs:198-252):
+    `_sweep_decide`'s walk up to the first decided level."""
+    for ploidy in range(1, len(mec_vector) + 1):
+        decided, best = _sweep_decide(mec_vector, expected_errors, ploidy,
+                                      options)
+        if decided:
+            return best
+    return 1
 
 
 def _sweep_decide(mec_vector: np.ndarray, expected_errors: np.ndarray,
@@ -154,6 +138,12 @@ def _bucket_sites(s: int) -> int:
     if s <= 1024:
         return round_up(s, 256)
     return round_up(s, 512)
+
+
+def _bucket(bt: BlockTensor) -> Tuple[int, int]:
+    """A block's shape bucket (padded reads, padded sites): the rows of
+    BlockDeviceCache it lives in and the dispatches it joins."""
+    return _bucket_reads(bt.num_reads), _bucket_sites(bt.num_sites)
 
 
 def phase_contig_blocks(frags, snp_to_genome_pos: np.ndarray,
@@ -232,43 +222,47 @@ def adaptive_sweep(blocks, options: Options,
 
     Returns ({key: (best_ploidy, assignment)}, {key: mec_vector},
     {key: expected_errors})."""
-    mesh = make_block_mesh(options.num_devices, device=device)
-    caches = _mesh_caches(blocks, cache, mesh)
+    caches = _mesh_caches(blocks, cache, make_block_mesh(
+        options.num_devices, device=device))
     max_p = options.max_ploidy
     mec_vec = {key: np.zeros(max_p) for key, _bt in blocks}
     exp_vec = {key: np.zeros(max_p) for key, _bt in blocks}
     chosen: Dict[object, Tuple[int, np.ndarray]] = {}
     prev_assign: Dict[object, np.ndarray] = {}
     spans: dict = {}                # read_columns by key, for this call
-    active = blocks
+    # Each wave is a list of the levels of its dispatches. The fused
+    # (1, 2) dispatch is single-device only, as in the reference: over a
+    # mesh levels 1 and 2 are separate dispatches of one wave.
+    waves = [[(p,)] for p in range(3 if max_p >= 2 else 1, max_p + 1)]
     if max_p >= 2:
-        schedule = [(1, 2)] + list(range(3, max_p + 1))
-    else:
-        schedule = list(range(1, max_p + 1))
-    for entry in schedule:
+        waves.insert(0, [(1, 2)] if len(caches) == 1 else [(1,), (2,)])
+    active = blocks
+    for wave in waves:
         if not active:
             break
-        pending = _sweep_launch(active, options, caches, [entry], spans)
-        levels = entry if isinstance(entry, tuple) else (entry,)
-        refined_p, stats_p = _sweep_pull(pending)
-        log.debug("sweep level %s: %d blocks", entry, len(active))
+        plan = _plan([(j, bt, levels) for levels in wave for j, bt in active],
+                     options, spans)
+        with timing.span("phase.launch"):
+            pending = _launch_sharded(caches, plan,
+                                      functools.partial(_chain, options))
+        with timing.span("phase.wait"):
+            refined, stats = _pull(pending)
+        levels = [p for lv in wave for p in lv]
+        log.debug("sweep levels %s: %d blocks", levels, len(active))
         next_active = []
         for key, bt in active:
-            undecided = True
             for ploidy in levels:
-                good, bad = stats_p[(key, ploidy)]
+                good, bad = stats[(key, ploidy)]
                 mec_vec[key][ploidy - 1] = bad
                 exp_vec[key][ploidy - 1] = (good + bad) * options.epsilon
                 decided, best = _sweep_decide(mec_vec[key], exp_vec[key],
                                               ploidy, options)
                 if decided:
-                    a = (refined_p[(key, ploidy)] if best == ploidy
-                         else prev_assign[key])
-                    chosen[key] = (best, a)
-                    undecided = False
+                    chosen[key] = (best, refined[(key, ploidy)]
+                                   if best == ploidy else prev_assign[key])
                     break
-                prev_assign[key] = refined_p[(key, ploidy)]
-            if undecided:
+                prev_assign[key] = refined[(key, ploidy)]
+            else:
                 next_active.append((key, bt))
         active = next_active
     log.info("Beam search: %d blocks, adaptive chained sweep <= %d in "
@@ -303,9 +297,7 @@ class BlockDeviceCache:
         buckets: Dict[Tuple[int, int],
                       List[Tuple[object, BlockTensor]]] = {}
         for j, bt in blocks:
-            key = (_bucket_reads(bt.num_reads),
-                   _bucket_sites(bt.num_sites))
-            buckets.setdefault(key, []).append((j, bt))
+            buckets.setdefault(_bucket(bt), []).append((j, bt))
         self.rows: Dict[object, int] = {}
         self.dev: Dict[Tuple[int, int], Tuple[torch.Tensor,
                                               torch.Tensor]] = {}
@@ -340,46 +332,39 @@ class BlockDeviceCache:
                                              self.phred).contiguous())
 
 
-def _sweep_chain(cache: BlockDeviceCache, key, ids, nreads, eps,
-                 ploidy: int, beam_width: int, window: int,
-                 max_alleles: int, fused12: bool = False):
-    """One sweep level for one dispatch: gather -> weights -> beam +
-    traceback -> UPEM -> MEC. Level 1 reduces exactly to the MEC stats
-    of the everything-in-part-0 partition (UPEM needs >= 2 parts to
-    move). fused12 (ploidy 2) also returns level 1's stats. On a card it
-    only enqueues: its windows were checked on the host
-    (`_sweep_launch`)."""
-    dev = cache.device
-    alleles, weights = cache.gather(key, ids)
-    nr = upload(nreads, dev)
-    ep = upload(eps, dev)
-    zeros = torch.zeros(alleles.shape[:2], dtype=torch.int32, device=dev)
-    if ploidy == 1:
-        return zeros, upem_eval("mec", alleles, weights, zeros, ep, 1,
-                                max_alleles)
-    nparts = torch.full((alleles.shape[0],), ploidy, dtype=torch.int32,
-                        device=dev)
-    _result, assigns = beam_kernel.beam_search_traceback(
-        alleles, weights, nr, ep, nparts, ploidy, beam_width,
-        max_alleles=max_alleles, window=window, device=dev,
-        check_windows=False)
-    best, mec, _diff = upem_optimize_device(
-        alleles, weights, assigns.to(torch.int32), nr, ep, ploidy,
-        max_alleles=max_alleles, device=dev)
-    if fused12:
-        return best, (upem_eval("mec", alleles, weights, zeros, ep, 1,
-                                max_alleles), mec)
-    return best, mec
+def _plan(instances, options: Options, spans: Optional[dict] = None,
+          mixed: bool = False) -> list:
+    """The dispatches of `instances` [(block key, BlockTensor, levels)],
+    in order: grouped by shape bucket (`_bucket`) and, unless `mixed`
+    (one beam over instances of any level), by levels, each group in
+    chunks of at most the dispatch cap's read-site cells
+    (`_sweep_cap_cells`). A dispatch is (members, bucket, window): its
+    window from `_dispatch_window` with the caller's table `spans` of the
+    blocks' read columns, 0 without one. Instances are independent, so
+    the split changes no result."""
+    groups: Dict[tuple, list] = {}
+    for j, bt, levels in instances:
+        groups.setdefault((None if mixed else levels, _bucket(bt)),
+                          []).append((j, bt, levels))
+    plan = []
+    for (_levels, key), members in groups.items():
+        cap = max(1, _sweep_cap_cells(options) // (key[0] * key[1]))
+        for lo in range(0, len(members), cap):
+            chunk = members[lo:lo + cap]
+            plan.append((chunk, key, 0 if spans is None
+                         else _dispatch_window(chunk, key[1], spans)))
+    return plan
 
 
 @timing.span("dispatch.window")
 def _dispatch_window(chunk, s_pad: int, spans: dict) -> int:
-    """The sliding compute window of one dispatch of `chunk`'s blocks at
-    s_pad columns, the reference's policy: round_up(span + 128, 256) for
-    the chunk's longest read span (BlockTensor.max_read_span), only for
-    a >= 4x shrink of the site axis, else 0 (full width). A window is
-    checked on the host, block by block, to hold every read, as K1
-    requires (`beam_kernel.check_windows_host`).
+    """The sliding compute window of one dispatch of `chunk`'s blocks
+    [(block key, BlockTensor, ...)] at s_pad columns, the reference's
+    policy: round_up(span + 128, 256) for the chunk's longest read span
+    (BlockTensor.max_read_span), only for a >= 4x shrink of the site
+    axis, else 0 (full width). A window is checked on the host, block by
+    block, to hold every read, as K1 requires
+    (`beam_kernel.check_windows_host`).
 
     `spans` is the caller's table of each block's `read_columns` by
     block key, filled here as blocks are first read, and kept for one
@@ -390,7 +375,7 @@ def _dispatch_window(chunk, s_pad: int, spans: dict) -> int:
     # s_pad. Every span is at least 1, so below 1 no block need be read.
     limit = s_pad // 1024 * 256 - 128
     span, read = 1, 0
-    for j, bt in chunk:
+    for j, bt, *_rest in chunk:
         if span > limit:
             break
         if j not in spans:
@@ -402,70 +387,22 @@ def _dispatch_window(chunk, s_pad: int, spans: dict) -> int:
     if span > limit:
         return 0
     window = round_up(span + 128, 256)
-    for j, _bt in chunk:
+    for j, *_rest in chunk:
         beam_kernel.check_windows_host(*spans[j], s_pad, window)
     return window
 
 
-def _sweep_launch(blocks, options: Options,
-                  caches: List[BlockDeviceCache], ploidies,
-                  spans: Optional[dict] = None) -> list:
-    """Enqueue one wave of chained beam -> UPEM dispatches for every
-    (block, ploidy in ploidies) instance, per shape bucket, in chunks of
-    the dispatch cap. On a card nothing here waits for it: the results
-    stay on the device until _sweep_pull, and `phase.launch` times the
-    enqueueing only. Each dispatch's windows are checked on the host,
-    from its blocks, before anything is enqueued; `spans` is the
-    caller's table of the blocks' read columns (`_dispatch_window`), a
-    new one when not given.
-
-    Over a mesh of more than one shard (`caches`, one per shard), each
-    dispatch splits as `_launch_sharded` splits it, and each shard's
-    whole chain runs on its device. The reference pulls the sharded beam
-    to the host and runs UPEM on the default device; instances are
-    independent, so the outputs are the same
-    (tests/test_torch_parallel.py)."""
-    check_no_tf32()
-    groups: Dict[Tuple[int, int], List[Tuple[object, BlockTensor]]] = {}
-    for j, bt in blocks:
-        key = (_bucket_reads(bt.num_reads), _bucket_sites(bt.num_sites))
-        groups.setdefault(key, []).append((j, bt))
-    if len(caches) > 1:
-        # The fused (1, 2) wave is single-device only, as in the
-        # reference: over a mesh levels 1 and 2 are separate dispatches
-        # of one wave.
-        ploidies = [q for p in ploidies
-                    for q in (p if isinstance(p, tuple) else (p,))]
-    spans = {} if spans is None else spans
-    dispatches = [(chunk, ploidy, key, _dispatch_window(chunk, key[1],
-                                                        spans))
-                  for ploidy in ploidies
-                  for key, members in groups.items()
-                  for chunk in _chunks(members, key, options)]
-
-    def launch(cache, members, ploidy, key, window):
-        nreads = np.array([bt.num_reads for _j, bt in members],
-                          dtype=np.int32)
-        eps = np.full(len(members), options.epsilon, dtype=np.float32)
-        fused = ploidy == (1, 2)
-        best, mec = _sweep_chain(
-            cache, key, [j for j, _bt in members], nreads, eps,
-            2 if fused else ploidy, options.max_number_solns, window,
-            cache.amax[key], fused12=fused)
-        return members, ploidy, best, mec
-
-    with timing.span("phase.launch"):
-        return _launch_sharded(caches, dispatches, launch)
-
-
-def _launch_sharded(caches: List[BlockDeviceCache], dispatches, launch
+def _launch_sharded(caches: List[BlockDeviceCache], dispatches, stage
                     ) -> list:
-    """[launch(cache, members, *rest)] for every dispatch (members,
-    *rest), over the mesh of `caches` (one per shard): each dispatch's
-    members split into len(caches) contiguous shards (parallel/mesh.py
-    shard_bounds, empty shards skipped), and each shard's dispatches run
-    in order on its cache's device, on its own host thread, all shards
-    at once. Results in shard order, each shard's in dispatch order."""
+    """[(members, stage(cache, members, *rest))] for every dispatch
+    (members, *rest), over the mesh of `caches` (one per shard): each
+    dispatch's members split into len(caches) contiguous shards
+    (parallel/mesh.py shard_bounds, empty shards skipped), and each
+    shard's dispatches run in order on its cache's device, on its own
+    host thread, all shards at once (inline for one shard). Results in
+    shard order, each shard's in dispatch order. On a card nothing here
+    waits for it: the results stay on the device until `_pull`."""
+    check_no_tf32()
     jobs: List[list] = [[] for _ in caches]
     for members, *rest in dispatches:
         for k, (a, b) in enumerate(shard_bounds(len(members),
@@ -473,45 +410,110 @@ def _launch_sharded(caches: List[BlockDeviceCache], dispatches, launch
             if b > a:
                 jobs[k].append((members[a:b], *rest))
     shards = run_on_shards(
-        lambda k: [launch(caches[k], *job) for job in jobs[k]],
+        lambda k: [(job[0], stage(caches[k], *job)) for job in jobs[k]],
         [k for k in range(len(caches)) if jobs[k]])
     return [p for pending in shards for p in pending]
 
 
-@timing.span("phase.wait")
-def _sweep_pull(pending: list):
-    """Download one wave's refined assignments and MEC stats: every
-    result is copied into pinned host memory without a wait, then the
-    host waits once per device, on an event recorded after the copies."""
-    flat = [x for _members, _ploidy, best, mec in pending
-            for x in (best, *(mec if isinstance(mec, tuple) else (mec,)))]
-    hosts = iter(pull(flat))
+def _inputs(options: Options, cache: BlockDeviceCache, members, key):
+    """One dispatch's inputs on its cache's device: the members'
+    (alleles, weights) [G, r_pad, s_pad] gathered from the cache, their
+    num_reads and epsilon [G]."""
+    alleles, weights = cache.gather(key, [j for j, _bt, _lv in members])
+    nreads = np.array([bt.num_reads for _j, bt, _lv in members], np.int32)
+    eps = np.full(len(members), options.epsilon, np.float32)
+    return (alleles, weights, upload(nreads, cache.device),
+            upload(eps, cache.device))
+
+
+def _beam(cache: BlockDeviceCache, key, x, nparts, ploidy: int,
+          beam_width: int, window: int) -> torch.Tensor:
+    """The beam scan and traceback (K1 on a card) of one dispatch of the
+    bucket `key` on its inputs `x` (`_inputs`), at `ploidy` with each
+    member at its own part count (`nparts` [G] int32 on the device): the
+    best beam's assignments [G, r_pad]. The window was checked on the
+    host (`_plan`)."""
+    alleles, weights, nr, ep = x
+    _result, assigns = beam_kernel.beam_search_traceback(
+        alleles, weights, nr, ep, nparts, ploidy, beam_width,
+        max_alleles=cache.amax[key], window=window, device=cache.device,
+        check_windows=False)
+    log.debug("beam group r_pad=%d s_pad=%d G=%d window=%d on %s",
+              key[0], key[1], alleles.shape[0], window, cache.device)
+    return assigns
+
+
+def _climb(cache: BlockDeviceCache, key, x, start, ploidy: int):
+    """The UPEM climb (K6's climb kernel on a card, K4's body inside) of
+    one dispatch of the bucket `key` on its inputs `x` (`_inputs`) from
+    `start` [G, r_pad] int32 on the device, and the unit-weight MEC
+    stats of the result: (refined [G, r_pad] int32, (bases, errors)
+    [G, 2] f64)."""
+    alleles, weights, nr, ep = x
+    best, mec, _diff = upem_optimize_device(
+        alleles, weights, start, nr, ep, ploidy,
+        max_alleles=cache.amax[key], device=cache.device)
+    return best, mec
+
+
+def _chain(options: Options, cache: BlockDeviceCache, members, key,
+           window: int) -> list:
+    """One sweep dispatch at its members' levels (one, or 1 and 2
+    fused): `_beam` then `_climb` at the top level, and at level 1 the
+    unit-weight MEC of the everything-in-part-0 partition (UPEM needs
+    >= 2 parts to move). Returns [(level, refined or None for all
+    zeros, (bases, errors))]."""
+    levels = members[0][2]
+    top = levels[-1]
+    x = alleles, weights, _nr, ep = _inputs(options, cache, members, key)
+    out = []
+    if top > 1:
+        nparts = torch.full((len(members),), top, dtype=torch.int32,
+                            device=cache.device)
+        assigns = _beam(cache, key, x, nparts, top,
+                        options.max_number_solns, window)
+        out.append((top, *_climb(cache, key, x, assigns.to(torch.int32),
+                                 top)))
+    if levels[0] == 1:
+        zeros = torch.zeros(alleles.shape[:2], dtype=torch.int32,
+                            device=cache.device)
+        out.append((1, None, upem_eval("mec", alleles, weights, zeros, ep,
+                                       1, cache.amax[key])))
+    return out
+
+
+def _span(name: Optional[str]):
+    return timing.span(name) if name else contextlib.nullcontext()
+
+
+def _pull(pending: list, wait: Optional[str] = None,
+          unpack: Optional[str] = None):
+    """Download every pending result (each stage's [(level, assignments,
+    mec)]) with one wait per device (`device.pull`) and unpack it. A
+    result's level None is each member's own; its assignments None are
+    all zeros; its mec None gives no stats. `wait` and `unpack` name the
+    spans of the two steps, if any.
+
+    Returns ({(block key, ploidy): assignment [num_reads] int32},
+    {(block key, ploidy): (bases, errors)})."""
+    results = [(members, r) for members, rs in pending for r in rs]
+    with _span(wait):
+        hosts = iter(pull([t for _m, (_level, *ts) in results
+                           for t in ts if t is not None]))
     refined: Dict[Tuple[object, int], np.ndarray] = {}
     stats: Dict[Tuple[object, int], Tuple[float, float]] = {}
-    for members, ploidy, _best, _mec in pending:
-        best = next(hosts)
-        if ploidy == (1, 2):
-            mec1, mec2 = next(hosts), next(hosts)
-            for g, (j, bt) in enumerate(members):
-                refined[(j, 1)] = np.zeros(bt.num_reads, np.int32)
-                stats[(j, 1)] = (float(mec1[g, 0]), float(mec1[g, 1]))
-                refined[(j, 2)] = best[g, :bt.num_reads]
-                stats[(j, 2)] = (float(mec2[g, 0]), float(mec2[g, 1]))
-            continue
-        mec = next(hosts)
-        for g, (j, bt) in enumerate(members):
-            refined[(j, ploidy)] = best[g, :bt.num_reads]
-            stats[(j, ploidy)] = (float(mec[g, 0]), float(mec[g, 1]))
+    with _span(unpack):
+        for members, (level, best, mec) in results:
+            best = None if best is None else next(hosts).astype(
+                np.int32, copy=False)
+            mec = None if mec is None else next(hosts)
+            for g, (j, bt, levels) in enumerate(members):
+                key = (j, level or levels[-1])
+                refined[key] = (np.zeros(bt.num_reads, np.int32)
+                                if best is None else best[g, :bt.num_reads])
+                if mec is not None:
+                    stats[key] = (float(mec[g, 0]), float(mec[g, 1]))
     return refined, stats
-
-
-def _chunks(members: list, key: Tuple[int, int],
-            options: Optional[Options]):
-    """`members` of the shape bucket key = (r_pad, s_pad) in dispatches
-    of at most the dispatch cap's read-site cells (`_sweep_cap_cells`).
-    Instances are independent, so the split changes no result."""
-    g_cap = max(1, _sweep_cap_cells(options) // (key[0] * key[1]))
-    return [members[lo:lo + g_cap] for lo in range(0, len(members), g_cap)]
 
 
 def _mesh_caches(blocks, cache: Optional[BlockDeviceCache],
@@ -550,48 +552,22 @@ def phase_instances(blocks: List[Tuple[object, BlockTensor]],
     are pulled once (`beam.pull`).
 
     Returns {(block key, ploidy): assignment [num_reads] int32}."""
-    check_no_tf32()
     ploidies = list(ploidies)
     caches = _mesh_caches(
         blocks, cache, make_block_mesh(options.num_devices, device=device))
-    groups: Dict[Tuple[int, int],
-                 List[Tuple[int, object, BlockTensor]]] = {}
-    for ploidy in ploidies:
-        for j, bt in blocks:
-            key = (_bucket_reads(bt.num_reads), _bucket_sites(bt.num_sites))
-            groups.setdefault(key, []).append((ploidy, j, bt))
-    max_ploidy = max(ploidies) if ploidies else 1
-    spans: dict = {}
-    dispatches = [(chunk, key, _dispatch_window(
-        [(j, bt) for _p, j, bt in chunk], key[1], spans))
-        for key, members in groups.items()
-        for chunk in _chunks(members, key, options)]
+    top = max(ploidies) if ploidies else 1
+    plan = _plan([(j, bt, (p,)) for p in ploidies for j, bt in blocks],
+                 options, {}, mixed=True)
 
-    def launch(cache, chunk, key, window):
-        dev = cache.device
-        nreads = np.array([bt.num_reads for _p, _j, bt in chunk], np.int32)
-        nparts = np.array([p for p, _j, _bt in chunk], np.int32)
-        eps = np.full(len(chunk), options.epsilon, np.float32)
-        alleles, weights = cache.gather(key, [j for _p, j, _bt in chunk])
-        _result, assigns = beam_kernel.beam_search_traceback(
-            alleles, weights, upload(nreads, dev), upload(eps, dev),
-            upload(nparts, dev), max_ploidy, options.max_number_solns,
-            max_alleles=cache.amax[key], window=window, device=dev,
-            check_windows=False)
-        log.debug("beam group r_pad=%d s_pad=%d G=%d window=%d on %s",
-                  key[0], key[1], len(chunk), window, dev)
-        return chunk, assigns
+    def stage(cache, members, key, window):
+        x = _inputs(options, cache, members, key)
+        nparts = np.array([lv[-1] for _j, _bt, lv in members], np.int32)
+        return [(None, _beam(cache, key, x, upload(nparts, cache.device),
+                             top, options.max_number_solns, window), None)]
 
     with timing.span("beam.launch"):
-        pending = _launch_sharded(caches, dispatches, launch)
-    with timing.span("beam.pull"):
-        hosts = pull([assigns for _chunk, assigns in pending])
-    with timing.span("beam.unpack"):
-        out: Dict[Tuple[object, int], np.ndarray] = {}
-        for (chunk, _assigns), host in zip(pending, hosts):
-            for g, (ploidy, j, bt) in enumerate(chunk):
-                out[(j, ploidy)] = host[g, :bt.num_reads].astype(np.int32)
-    return out
+        pending = _launch_sharded(caches, plan, stage)
+    return _pull(pending, "beam.pull", "beam.unpack")[0]
 
 
 @timing.span("refine_instances")
@@ -613,45 +589,22 @@ def refine_instances(blocks: List[Tuple[object, BlockTensor]],
 
     Returns ({(block key, ploidy): refined assignment [num_reads]
     int32}, {(block key, ploidy): (bases, errors)})."""
-    check_no_tf32()
-    cache, = _mesh_caches(blocks, cache, [resolve_device(device)])
-    dev = cache.device
+    caches = _mesh_caches(blocks, cache, [resolve_device(device)])
     if ploidies is None:
         ploidies = range(1, options.max_ploidy + 1)
-    groups: Dict[Tuple[int, int, int],
-                 List[Tuple[object, BlockTensor]]] = {}
-    for ploidy in ploidies:
-        for j, bt in blocks:
-            key = (ploidy, _bucket_reads(bt.num_reads),
-                   _bucket_sites(bt.num_sites))
-            groups.setdefault(key, []).append((j, bt))
-    pending = []
+    plan = _plan([(j, bt, (p,)) for p in ploidies for j, bt in blocks],
+                 options)
+
+    def stage(cache, members, key, _window):
+        x = _inputs(options, cache, members, key)
+        (ploidy,) = members[0][2]
+        start = np.zeros((len(members), key[0]), np.int32)
+        if ploidy > 1:
+            for g, (j, bt, _lv) in enumerate(members):
+                start[g, :bt.num_reads] = assignments[(j, ploidy)]
+        return [(ploidy, *_climb(cache, key, x,
+                                 upload(start, cache.device), ploidy))]
+
     with timing.span("upem.launch"):
-        for (ploidy, *shape), members in groups.items():
-            key = tuple(shape)
-            for chunk in _chunks(members, key, options):
-                assigns = np.zeros((len(chunk), key[0]), np.int32)
-                nreads = np.array([bt.num_reads for _j, bt in chunk],
-                                  np.int32)
-                if ploidy > 1:
-                    for g, (j, bt) in enumerate(chunk):
-                        assigns[g, :bt.num_reads] = assignments[(j, ploidy)]
-                eps = np.full(len(chunk), options.epsilon, np.float32)
-                alleles, weights = cache.gather(key,
-                                                [j for j, _bt in chunk])
-                best, mec, _diff = upem_optimize_device(
-                    alleles, weights, upload(assigns, dev),
-                    upload(nreads, dev), upload(eps, dev), ploidy,
-                    max_alleles=cache.amax[key], device=dev)
-                pending.append((chunk, ploidy, best, mec))
-    with timing.span("upem.pull"):
-        hosts = iter(pull([x for _c, _p, best, mec in pending
-                           for x in (best, mec)]))
-    refined: Dict[Tuple[object, int], np.ndarray] = {}
-    stats: Dict[Tuple[object, int], Tuple[float, float]] = {}
-    for chunk, ploidy, _best, _mec in pending:
-        best, mec = next(hosts), next(hosts)
-        for g, (j, bt) in enumerate(chunk):
-            refined[(j, ploidy)] = best[g, :bt.num_reads]
-            stats[(j, ploidy)] = (float(mec[g, 0]), float(mec[g, 1]))
-    return refined, stats
+        pending = _launch_sharded(caches, plan, stage)
+    return _pull(pending, "upem.pull")

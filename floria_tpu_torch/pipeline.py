@@ -28,6 +28,7 @@ from .graph.hapnode import FragCsr, HapNode, assign_ids, build_hap_node
 from .graph.paths import get_disjoint_paths
 from .ingest import bam as bamlib
 from .ingest.fasta import FastaFile
+from .ingest.fastingest import open_native
 from .ingest.vcf import VcfProfile, read_vcf
 from .ingest.fragments import collect_contig_records, finalize_frags
 from .kernels.realign import RealignPool, flush_pool
@@ -42,15 +43,10 @@ log = logging.getLogger("floria_tpu")
 
 
 def open_bam(path: str, restrict=None):
-    """Native-accelerated BAM when the C++ runtime is available, pure
-    Python otherwise."""
-    try:
-        from .ingest.fastingest import FastBam
-        return FastBam(path, restrict=restrict)
-    except Exception as e:
-        log.debug("native BAM path unavailable (%s); using pure decoder",
-                  e)
-        return bamlib.BamFile(path)
+    """Native-accelerated BAM when the C++ runtime is available
+    (`fastingest.open_native`), pure Python otherwise."""
+    fb = open_native(path, restrict)
+    return bamlib.BamFile(path) if fb is None else fb
 
 
 @dataclasses.dataclass

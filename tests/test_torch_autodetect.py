@@ -12,7 +12,7 @@ import torch
 from floria_tpu.ingest.autodetect import \
     l_epsilon_auto_detect as jax_estimate
 from floria_tpu_torch import constants, native, timing
-from floria_tpu_torch.ingest import autodetect
+from floria_tpu_torch.ingest import autodetect, fastingest
 from floria_tpu_torch.ingest import bam as bamlib
 from floria_tpu_torch.sim import bamwrite
 from floria_tpu_torch.sim.simulate import SimConfig, simulate
@@ -254,7 +254,7 @@ def test_the_cases_reach_what_they_are_for(tmp_path):
     stops = {}
     for name in ("deep", "contigs"):
         bam = _bam(tmp_path, name)
-        fb = autodetect._open_native(bam)
+        fb = fastingest.open_native(bam)
         contigs, n_err = 0, 0
         for n_cols, col_idx, _b, _l in autodetect._native_contigs(fb):
             contigs += 1

@@ -27,6 +27,7 @@ without one (decided inside the fixture). On a machine with a card:
 """
 
 import dataclasses
+import functools
 import json
 import os
 
@@ -585,11 +586,19 @@ def _deep_blocks():
         for j, bt in _synth_blocks(10, 192, 1024, 5, seed=8)]
 
 
+def _sweep_wave(blocks, opts, caches, levels):
+    """One sweep wave of `levels` over every block, enqueued as the
+    sweep enqueues it (`_plan`, `_launch_sharded`, `_chain`)."""
+    plan = TL._plan([(j, bt, levels) for j, bt in blocks], opts, {})
+    return TL._launch_sharded(caches, plan,
+                              functools.partial(TL._chain, opts))
+
+
 @pytest.mark.parametrize("which", ["workload", "deep"])
 def test_sweep_level_launch_makes_no_host_wait(dev, which, monkeypatch):
-    """One sweep level enqueued (`_sweep_launch`) under sync debug mode
-    "error": no call may wait on the card. `_sweep_pull` then waits once
-    (one event) and gives the CPU route's results."""
+    """One sweep level enqueued (`_launch_sharded`) under sync debug mode
+    "error": no call may wait on the card. `_pull` then waits once (one
+    event) and gives the CPU route's results."""
     from floria_tpu_torch.options import Options
 
     blocks = workload_blocks() if which == "workload" else _deep_blocks()
@@ -601,20 +610,19 @@ def test_sweep_level_launch_makes_no_host_wait(dev, which, monkeypatch):
     sync = torch.cuda.Event.synchronize
     monkeypatch.setattr(torch.cuda.Event, "synchronize",
                         lambda ev: (waits.append(ev), sync(ev))[1])
-    levels = [(1, 2), 3] if which == "workload" else [3, 5]
+    levels = [(1, 2), (3,)] if which == "workload" else [(3,), (5,)]
     for level in levels:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            pending = TL._sweep_launch(blocks, opts, caches, [level])
+            pending = _sweep_wave(blocks, opts, caches, level)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         n = len(waits)
-        refined, stats = TL._sweep_pull(pending)
+        refined, stats = TL._pull(pending)
         assert len(waits) == n + 1
         if which == "deep":
-            want = TL._sweep_pull(TL._sweep_launch(blocks, opts,
-                                                   cpu_caches, [level]))
+            want = TL._pull(_sweep_wave(blocks, opts, cpu_caches, level))
             assert stats == want[1]
             for k, v in want[0].items():
                 assert np.array_equal(refined[k], v)

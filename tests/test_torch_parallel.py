@@ -136,15 +136,17 @@ def test_training_step_sharded_matches_jax(n):
 
 
 def _chain_spy(monkeypatch):
+    """Each sweep dispatch as (thread, top level, fused, members)."""
     calls = []
-    orig = TL._sweep_chain
+    orig = TL._chain
 
-    def spy(cache, key, ids, *args, **kw):
-        calls.append((threading.get_ident(), args[2], kw.get("fused12"),
-                      len(ids)))
-        return orig(cache, key, ids, *args, **kw)
+    def spy(options, cache, members, *args):
+        levels = members[0][2]
+        calls.append((threading.get_ident(), levels[-1], len(levels) > 1,
+                      len(members)))
+        return orig(options, cache, members, *args)
 
-    monkeypatch.setattr(TL, "_sweep_chain", spy)
+    monkeypatch.setattr(TL, "_chain", spy)
     return calls
 
 

@@ -86,29 +86,66 @@ def test_dispatch_cap_chunking_is_output_invariant(monkeypatch):
     _assert_sweeps_equal(base, chunked)
 
 
-def test_dispatch_holds_each_instance_once(monkeypatch):
-    """Each dispatch carries exactly its blocks: no padding instances in
-    the beam scan, and cache rows equal to the bucket's member count."""
+@pytest.mark.parametrize("api", ["sweep", "phase_instances",
+                                 "refine_instances"])
+def test_dispatch_holds_each_instance_once(monkeypatch, api):
+    """Each dispatch carries exactly its instances: every (block, ploidy)
+    instance lands in exactly one dispatch of its shape bucket, with no
+    padding instance in the batch the kernels get, and the cache's rows
+    equal the bucket's member count. A sweep wave, phase_instances and
+    refine_instances go through the one planner and launcher."""
     blocks = _blocks(5, 4)
     opts = Options(epsilon=0.02, max_ploidy=3)
-    seen = []
-    orig = TL.beam_kernel.beam_search_traceback
+    dispatches, beams = [], []
+    inputs = TL._inputs
+    beam = TL.beam_kernel.beam_search_traceback
 
-    def spy(alleles, *args, **kw):
-        seen.append(alleles.shape[0])
-        return orig(alleles, *args, **kw)
+    def spy_inputs(options, cache, members, key):
+        x = inputs(options, cache, members, key)
+        dispatches.append((key, [(j, p) for j, _bt, lv in members
+                                 for p in lv], len(members), x[0].shape[0]))
+        return x
 
-    monkeypatch.setattr(TL.beam_kernel, "beam_search_traceback", spy)
+    def spy_beam(alleles, *args, **kw):
+        beams.append(alleles.shape[0])
+        return beam(alleles, *args, **kw)
+
+    monkeypatch.setattr(TL, "_inputs", spy_inputs)
+    monkeypatch.setattr(TL.beam_kernel, "beam_search_traceback", spy_beam)
     cache = TL.BlockDeviceCache(blocks, device="cpu")
     assert sum(a.shape[0] for a, _q in cache.dev.values()) == len(blocks)
-    got = TL.adaptive_sweep(blocks, opts, cache, device="cpu")
-    # One beam instance per block in the fused level-1+2 wave, then one
-    # per (block, level >= 3) that ran: its expected errors were filled.
-    assert seen[0] == len(blocks)
-    later = sum(int((e[2:] > 0).sum()) for e in got[2].values())
-    assert later > 0
-    assert sum(seen[1:]) == later
-    _assert_sweeps_equal(L.adaptive_sweep(blocks, opts), got)
+    if api == "sweep":
+        got = TL.adaptive_sweep(blocks, opts, cache, device="cpu")
+        # One beam instance per block in the fused level-1+2 wave, then
+        # one per (block, level >= 3) that ran: its expected errors were
+        # filled.
+        assert beams[0] == len(blocks)
+        later = sum(int((e[2:] > 0).sum()) for e in got[2].values())
+        assert later > 0
+        assert sum(beams[1:]) == later
+        _assert_sweeps_equal(L.adaptive_sweep(blocks, opts), got)
+        want = {(j, p) for j, e in got[2].items()
+                for p in range(1, 4) if p <= 2 or e[p - 1] > 0}
+    elif api == "phase_instances":
+        got = TL.phase_instances(blocks, opts, [2, 3], cache, device="cpu")
+        want = set(got)
+        assert want == {(j, p) for j, _bt in blocks for p in (2, 3)}
+        assert sum(beams) == len(want)
+    else:
+        start = TL.phase_instances(blocks, opts, [2, 3], device="cpu")
+        del dispatches[:], beams[:]
+        got, stats = TL.refine_instances(blocks, start, opts, cache,
+                                         device="cpu")
+        want = set(got)
+        assert want == set(stats) == {(j, p) for j, _bt in blocks
+                                      for p in (1, 2, 3)}
+        assert not beams
+    held = [inst for _key, insts, _n, _g in dispatches for inst in insts]
+    assert len(held) == len(set(held)) and set(held) == want
+    buckets = {j: TL._bucket(bt) for j, bt in blocks}
+    for key, insts, members, batch in dispatches:
+        assert batch == members
+        assert all(buckets[j] == key for j, _p in insts)
 
 
 def test_sweep_cap_default_and_precedence(monkeypatch):
