@@ -35,8 +35,8 @@ each; any failure raises (exit code != 0):
                 run (its K1 dispatches, K5 partitions and climbs
                 recorded; exactly one K1 and one K6 climb per dispatch
                 plus one K6 ploidy-1 MEC per fused level-2 dispatch, the
-                two K6 kernels counted apart; every sweep
-                level's launch under sync debug mode "error", so a host
+                two K6 kernels counted apart; the block cache's build and
+                every sweep level's launch under sync debug mode "error", so a host
                 wait there fails the run, and each pull's host waits
                 counted), a third run under torch.profiler (the card's
                 busy share) and a `--device cpu` run; all four must
@@ -66,8 +66,9 @@ each; any failure raises (exit code != 0):
                 every block of phase 4's `ecoli2` sweep; on the bench
                 shapes also upem_eval_batch (K6's evaluation kernel) and
                 optimize_many, equal to refine_instances; per case its
-                launches counted from 0, both calls' launches under sync
-                debug mode "error" and one host wait per pull (SyncCheck,
+                launches counted from 0 (one block_pad per bucket of
+                each call's cache), both calls' caches and launches under
+                sync debug mode "error" and one host wait per pull (SyncCheck,
                 as the sweep's in phases 4 and 7c), every K1 dispatch and
                 climb held
                 to its plain version on the card, and every (block,
@@ -77,6 +78,13 @@ each; any failure raises (exit code != 0):
                 inputs already on the card) at both shapes and its CPU
                 denominators (`native.baseline_sweep`, faithful and
                 dense) through `floria_tpu_torch.bench` on this host;
+  6c. cache   - the block cache of phase 4's `ecoli2` sweep on the card:
+                per shape bucket block_pad (csrc/block_pad.cu) against
+                its plain version on the card, bitwise, both timed beside
+                the kernel's bound, with the host staging and the whole
+                pad call; then the whole cache, built under SyncCheck (no
+                host wait, one block_pad launch per bucket), equal to a
+                CPU cache and timed;
   7. parity   - the port's CLI on the `long3` community must write the
                 oracle pipeline's bytes (tests/data/long3_oracle.json);
  7b. north_star - the port's CLI on the round's 12 small configs (the
@@ -1143,36 +1151,51 @@ def hold_decisions(config, got, sim_dir, run=None):
 
 
 class SyncCheck:
-    """While active, every launch of phase/local.py's one dispatch path
+    """While active, every block cache built on a card
+    (`BlockDeviceCache.__init__`: its staging, copies and block_pad
+    launches) and every launch of phase/local.py's one dispatch path
     (`_launch_sharded`: a sweep wave, a `phase_instances` or a
     `refine_instances` call) runs under
     torch.cuda.set_sync_debug_mode("error"), so any host wait in it
     raises, and every pull (`_pull`) counts its host waits: CUDA event
     synchronizations plus any synchronizing call PyTorch reports (sync
-    debug mode "warn")."""
+    debug mode "warn"). `cache_buckets` counts the buckets of the caches
+    built, one block_pad launch each."""
 
     def __init__(self):
         from floria_tpu_torch.phase import local
 
         self.local = local
         self.pull_waits = []
+        self.caches = self.cache_buckets = 0
         self._events = 0
 
     def __enter__(self):
         self._launch = self.local._launch_sharded
         self._pull = self.local._pull
+        self._init = self.local.BlockDeviceCache.__init__
         self._sync = torch.cuda.Event.synchronize
 
         def sync(ev):
             self._events += 1
             return self._sync(ev)
 
-        def launch(*args, **kw):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return self._launch(*args, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+        def no_wait(fn):
+            def run(*args, **kw):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return run
+
+        launch, build = no_wait(self._launch), no_wait(self._init)
+
+        def init(cache, *args, **kw):
+            build(cache, *args, **kw)
+            if cache.device.type == "cuda":
+                self.caches += 1
+                self.cache_buckets += len(cache.dev)
 
         def pull(*args, **kw):
             n0 = self._events
@@ -1189,15 +1212,18 @@ class SyncCheck:
 
         torch.cuda.Event.synchronize = sync
         self.local._launch_sharded, self.local._pull = launch, pull
+        self.local.BlockDeviceCache.__init__ = init
         return self
 
     def __exit__(self, *exc):
         torch.cuda.Event.synchronize = self._sync
         self.local._launch_sharded = self._launch
         self.local._pull = self._pull
+        self.local.BlockDeviceCache.__init__ = self._init
 
     def summary(self):
         return {"levels": len(self.pull_waits), "launch_host_waits": 0,
+                "caches": self.caches, "cache_host_waits": 0,
                 "pull_host_waits_per_level": self.pull_waits}
 
 
@@ -2335,14 +2361,21 @@ def instances_phase(dev, ecoli2):
             if case.startswith("bench"):
                 api = instance_api_checks(dev, blocks, opts, beam, refined,
                                           stats)
-        # One pull per call, each waiting once on the one card.
-        if sync is not None and sync.pull_waits != [1, 1]:
+        # One pull per call, each waiting once on the one card; one
+        # cache per call, built with no host wait.
+        if sync is not None and (sync.pull_waits != [1, 1]
+                                 or sync.caches != 2):
             raise AssertionError(f"instances {case}: host waits per pull "
-                                 f"{sync.pull_waits}, expected [1, 1]")
+                                 f"{sync.pull_waits}, expected [1, 1]; "
+                                 f"{sync.caches} caches, expected 2")
         launches = dict(_build.LAUNCHES)
         want = {"beam_scan": n_beam, "upem_moves": 0,
                 "upem_climb": n_climb + (0 if api is None else api[1]),
-                "upem_eval": 0 if api is None else 2 * api[0]}
+                "upem_eval": 0 if api is None else 2 * api[0],
+                # One per bucket of each cache: the calls' own (counted
+                # by SyncCheck) and instance_api_checks' of one bucket.
+                "block_pad": (0 if sync is None else sync.cache_buckets)
+                + (0 if api is None else 1)}
         if dev.type != "cuda":
             # The plain versions, which count no launch.
             want = dict.fromkeys(want, 0)
@@ -2393,6 +2426,82 @@ def instances_phase(dev, ecoli2):
     summary["phase_s"] = time.perf_counter() - t_phase
     emit(summary)
     return summary
+
+
+def block_pad_bound(table, r_pad, s_pad):
+    """block_pad's bound: the padded alleles and quals written once and
+    the staged cells read once (two bytes a cell each), at 3.35 TB/s."""
+    cells = int((table[:, 1] * table[:, 2]).sum())
+    return bound(2 * len(table) * r_pad * s_pad + 2 * cells, 0)
+
+
+def cache_phase(dev, blocks):
+    """Phase cache: the block cache of `blocks` ([(key, BlockTensor)], the
+    `ecoli2` sweep's) on the card. Per shape bucket: block_pad (the
+    kernel alone, on the staged cells already on the card) against its
+    plain version on the card, byte for byte, both timed, beside its
+    bound; the staging on the host and the whole `block_pad` call
+    (copies and launch) timed. Then the whole BlockDeviceCache, timed,
+    built under SyncCheck (no host wait; one block_pad launch per
+    bucket), and its tensors equal to a CPU cache's. Returns the
+    record."""
+    from floria_tpu_torch.kernels import _build
+    from floria_tpu_torch.kernels import block_pad as bp
+    from floria_tpu_torch.phase import local
+
+    buckets = {}
+    for _j, bt in blocks:
+        buckets.setdefault(local._bucket(bt), []).append(bt)
+    rec = {"phase": "cache", "blocks": len(blocks), "buckets": {}}
+    for (r_pad, s_pad), members in sorted(buckets.items()):
+        t0 = time.perf_counter()
+        staged, table, _top = bp.stage(members, pin=True)
+        stage_s = time.perf_counter() - t0
+        buf = torch.empty(staged.numel() + bp.SLACK, dtype=torch.uint8,
+                          device=dev)
+        buf[:staged.numel()].copy_(staged)
+        tab = torch.from_numpy(table).to(dev)
+        got = bp.block_pad_cuda(buf, tab, r_pad, s_pad)
+        want = bp.block_pad_plain(buf[:staged.numel()], table, r_pad, s_pad)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"block_pad at ({r_pad}, {s_pad}) differs "
+                                 "from its plain version on the card")
+        kernel_ms = event_ms(lambda: bp.block_pad_cuda(buf, tab, r_pad,
+                                                       s_pad))
+        device_ms = kernel_device_ms(
+            lambda: bp.block_pad_cuda(buf, tab, r_pad, s_pad),
+            "block_pad_kernel")
+        plain_s = timed(lambda: bp.block_pad_plain(
+            buf[:staged.numel()], table, r_pad, s_pad))
+        call_s = timed(lambda: bp.block_pad(staged, table, r_pad, s_pad,
+                                            dev))
+        bnd = block_pad_bound(table, r_pad, s_pad)
+        rec["buckets"][f"{r_pad}x{s_pad}"] = {
+            "B": len(members), "cells": staged.numel() // 2,
+            "stage_ms": stage_s * 1e3, "kernel_ms": kernel_ms,
+            "kernel_device_ms": device_ms, "plain_ms": plain_s * 1e3,
+            "call_ms": call_s * 1e3, "bound_ms": bnd[0], "bound_by": bnd[1]}
+    cpu = local.BlockDeviceCache(blocks, device="cpu")
+    local.BlockDeviceCache(blocks, device=dev)           # warm the pool
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with SyncCheck() as sync:
+        cache = local.BlockDeviceCache(blocks, device=dev)
+    if dict(_build.LAUNCHES) != {"block_pad": len(buckets)} or \
+            sync.caches != 1:
+        raise AssertionError(f"cache: launches {dict(_build.LAUNCHES)} "
+                             f"for {len(buckets)} buckets")
+    if cache.rows != cpu.rows or cache.amax != cpu.amax or any(
+            not torch.equal(cache.dev[k][i].cpu(), cpu.dev[k][i])
+            for k in cpu.dev for i in (0, 1)):
+        raise AssertionError("cache: the card's cache differs from the "
+                             "CPU's")
+    rec["cache_ms"] = timed(
+        lambda: local.BlockDeviceCache(blocks, device=dev)) * 1e3
+    rec["sync_check"] = sync.summary()
+    rec["launches"] = len(buckets)
+    emit(rec)
+    return rec
 
 
 # One rank of the CLI in its own process: the user's entry point, then
@@ -3306,6 +3415,7 @@ def main(argv=None) -> None:
         k5_err, k5_s, k5_plain_s, k5_bnd = check_realign(dev, recorder)
         del climbs, sweep_later
         instances = instances_phase(dev, ecoli2)
+        cache_phase(dev, ecoli2[0])
         del ecoli2
         parity_long3(tmp)
         north_star = north_star_phase(tmp)

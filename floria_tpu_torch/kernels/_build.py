@@ -159,6 +159,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         + [P])           # stream
     lib.floria_nw_best.restype = ctypes.c_int
     lib.floria_nw_best.argtypes = [P] * 7 + [ctypes.c_longlong, I, I, P]
+    lib.floria_block_pad.restype = ctypes.c_int
+    lib.floria_block_pad.argtypes = (
+        [P] * 2          # staged, table
+        + [ctypes.c_longlong] * 2  # cells, B
+        + [I] * 2        # r_pad s_pad
+        + [P] * 3)       # alleles, quals, stream
 
 
 def get_lib() -> ctypes.CDLL:

@@ -37,6 +37,7 @@ from .. import constants, state, timing
 from ..device import (check_no_tf32, pull, resolve_device, same_card,
                       upload)
 from ..kernels import beam as beam_kernel
+from ..kernels import block_pad
 from ..kernels.blocktensor import BlockTensor, pack_block, round_up
 from ..kernels.upem_batch import upem_eval, upem_optimize_device
 from ..options import Options
@@ -288,7 +289,14 @@ def _dump_local_parts(debug_dir: str, j: int, bt: BlockTensor, part_ids,
 class BlockDeviceCache:
     """Unique block tensors resident on the device, bucketed by padded
     shape: int8 alleles + uint8 quals (2 B/cell), uploaded once per
-    contig group; weights are rebuilt per dispatch by table lookup."""
+    contig group; weights are rebuilt per dispatch by table lookup.
+
+    Per bucket only the blocks' own cells cross to the device: staged
+    once on the host (`beam.cache_stage`, kernels/block_pad.py `stage`,
+    pinned on a card), then shipped and padded there (`beam.cache_pad`,
+    `block_pad`: one non_blocking copy and one kernel launch on the
+    device's current stream). On a card nothing here waits for it; the
+    dispatches that read the cache run later on that same stream."""
 
     @timing.span("beam.cache_upload")
     def __init__(self, blocks: List[Tuple[object, BlockTensor]], *,
@@ -304,22 +312,18 @@ class BlockDeviceCache:
         # Actual allele-value width per bucket (2 on biallelic data):
         # absent alleles' count planes are identically zero.
         self.amax: Dict[Tuple[int, int], int] = {}
-        self.phred = torch.from_numpy(state.phred_table()).to(self.device)
-        for (r_pad, s_pad), members in buckets.items():
-            B = len(members)
-            alleles = np.full((B, r_pad, s_pad), -1, dtype=np.int8)
-            quals = np.zeros((B, r_pad, s_pad), dtype=np.uint8)
-            for b, (j, bt) in enumerate(members):
-                r, s = bt.alleles.shape
-                alleles[b, :r, :s] = bt.alleles
-                quals[b, :r, :s] = bt.quals
+        self.phred = upload(state.phred_table(), self.device)
+        for key, members in buckets.items():
+            with timing.span("beam.cache_stage"):
+                staged, table, top = block_pad.stage(
+                    [bt for _j, bt in members],
+                    pin=self.device.type == "cuda")
+            with timing.span("beam.cache_pad"):
+                self.dev[key] = block_pad.block_pad(staged, table, *key,
+                                                    self.device)
+            self.amax[key] = min(constants.MAX_ALLELES, max(2, top + 1))
+            for b, (j, _bt) in enumerate(members):
                 self.rows[j] = b
-            self.amax[(r_pad, s_pad)] = min(
-                constants.MAX_ALLELES, max(2, int(alleles.max()) + 1))
-            self.dev[(r_pad, s_pad)] = (
-                torch.from_numpy(alleles).to(self.device),
-                torch.from_numpy(quals).to(self.device))
-            timing.count("h2d_bytes", alleles.nbytes + quals.nbytes)
 
     def gather(self, key: Tuple[int, int], block_ids: List[object]):
         """[G, r_pad, s_pad] (alleles, weights) for the given blocks, in

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 same card, bitwise: K1 (beam scan + traceback), K4 (the UPEM move
 function: candidates, sort and walk; with and without its `active`
-mask), K5 (realignment NW, two alleles per DP) and K6 (UPEM move
+mask), K5 (realignment NW, two alleles per DP), K6 (UPEM move
 evaluation: init, step and unit MEC; the climb kernel, over its routes,
-against the plain climb, in one launch with no host wait); the climb on
+against the plain climb, in one launch with no host wait) and the block
+cache's pad kernel (block_pad; the cache built with no host wait); the
+climb on
 the card against the CPU, and a sweep level enqueued without a host
 wait; the sharded beam and sweep (parallel/mesh.py) against the
 unsharded run, two shards on one card, and one shard per card on two
@@ -50,7 +52,8 @@ from test_torch_decisions_a import (hold_counts, jax_blocks, jax_nw_flips,
 from test_torch_oracle_configs import SMALL, run_both
 from test_torch_climb_kernel import CASES as CLIMB_CASES, climb_case
 from test_torch_instances_a import _dedup_block, _same, port_blocks
-from test_torch_instances_b import _padded, instances  # noqa: F401
+from test_torch_instances_b import (_harness_block, _padded,  # noqa: F401
+                                    instances)
 from test_upem_batch import _mk_block
 from test_torch_upem import CASES, _batch, moves_case
 
@@ -296,6 +299,94 @@ def test_nw_wrapper_counts_launches_and_checks_inputs(dev):
     got = TR.nw_best(q, si, nal, ref_tab, al_tab, 2)
     assert _build.LAUNCHES["nw_best"] == 1
     assert got.device.type == "cuda" and got.dtype == torch.int8
+
+
+def block_pad_case(case):
+    """[(block key, BlockTensor)] of block_pad's cases: "ecoli2", the
+    sizes of the `ecoli2` cache (124 blocks of 210 reads over 1,537-1,749
+    sites in the bucket (256, 2048), 27 over 1,436-1,536 in (256,
+    1536)); "ragged", blocks whose num_sites are no multiple of 16, one
+    of a single read and one of a single cell."""
+    rng = np.random.default_rng(22)
+    if case == "ecoli2":
+        sizes = [(210, int(s)) for s in rng.integers(1537, 1750, 124)] + [
+            (210, int(s)) for s in rng.integers(1436, 1537, 27)]
+    else:
+        sizes = [(1, 17), (3, 1), (16, 127), (9, 33), (1, 1), (1, 1000),
+                 (17, 301), (5, 250)]
+    return [(j, _harness_block(j, r, s, uncovered=range(r % 3)))
+            for j, (r, s) in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("case", ["ecoli2", "ragged"])
+def test_block_pad_kernel_matches_plain(dev, case):
+    """block_pad on the card (one copy, one kernel launch per bucket)
+    against its plain version on the CPU, byte for byte, at each
+    bucket's padded shape; on "ragged" also at pads no bucket has (rows
+    to the largest block's, sites to the next multiple of 16)."""
+    from floria_tpu_torch.kernels import block_pad as TBP
+
+    blocks = block_pad_case(case)
+    buckets = {}
+    for _j, bt in blocks:
+        buckets.setdefault(TL._bucket(bt), []).append(bt)
+    shapes = [(key, members) for key, members in buckets.items()]
+    if case == "ragged":
+        shapes.append(((max(bt.num_reads for _j, bt in blocks),
+                        -(-max(bt.num_sites for _j, bt in blocks) // 16)
+                        * 16), [bt for _j, bt in blocks]))
+    _build.LAUNCHES.clear()
+    for (r_pad, s_pad), members in shapes:
+        staged, table, _top = TBP.stage(members, pin=True)
+        got = TBP.block_pad(staged, table, r_pad, s_pad, dev)
+        want = TBP.block_pad_plain(staged, table, r_pad, s_pad)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda"
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.cpu(), b), (r_pad, s_pad)
+    assert dict(_build.LAUNCHES) == {"block_pad": len(shapes)}
+
+
+def test_block_pad_wrapper_checks_inputs(dev):
+    from floria_tpu_torch.kernels import block_pad as TBP
+
+    members = [bt for _j, bt in block_pad_case("ragged")]
+    staged, table, _top = TBP.stage(members, pin=True)
+    _build.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="pinned"):
+        TBP.block_pad(torch.from_numpy(staged.numpy().copy()), table, 32,
+                      1008, dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        TBP.block_pad(staged, table, 16, 1008, dev)
+    buf = torch.zeros(staged.numel() + TBP.SLACK, dtype=torch.uint8,
+                      device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        TBP.block_pad_cuda(buf, torch.from_numpy(table).to(dev), 32, 1000)
+    assert _build.LAUNCHES["block_pad"] == 0
+
+
+def test_block_cache_makes_no_host_wait(dev):
+    """BlockDeviceCache on a card under sync debug mode "error": no call
+    waits on the card (pinned staging, non_blocking copies, the pad
+    kernel), one block_pad launch per bucket, and the same tensors, rows
+    and amax as a cache on the CPU."""
+    blocks = block_pad_case("ecoli2")
+    TL.BlockDeviceCache(blocks[:2], device=dev)        # build and warm
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cache = TL.BlockDeviceCache(blocks, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dict(_build.LAUNCHES) == {"block_pad": len(cache.dev)}
+    cpu = TL.BlockDeviceCache(blocks, device="cpu")
+    assert cache.rows == cpu.rows and cache.amax == cpu.amax
+    assert set(cache.dev) == set(cpu.dev)
+    for key, (a, q) in cpu.dev.items():
+        assert torch.equal(cache.dev[key][0].cpu(), a)
+        assert torch.equal(cache.dev[key][1].cpu(), q)
 
 
 def eval_case(G, R, S, P, A, seed):
@@ -871,6 +962,21 @@ def _k1_launches(device, buckets=(12, 8)):
     return sum(hi > lo for m in buckets for lo, hi in TM.shard_bounds(m, n))
 
 
+def _instance_launches(device, own_cache=False, buckets=2):
+    """The kernel launches of phase_instances at ploidies 2..5 then
+    refine_instances at 1..5 on the `instances` fixture: K1 as
+    `_k1_launches`, one climb per ploidy and bucket, and one block_pad
+    per bucket of each cache the two calls build (one per card of
+    phase_instances' mesh and one for refine_instances, less the card
+    of the caller's cache, `own_cache`)."""
+    from floria_tpu_torch.device import same_card
+
+    cards = len({same_card(d) for d in TM.make_block_mesh(device=device)})
+    want = {"beam_scan": _k1_launches(device), "upem_climb": 10,
+            "block_pad": buckets * (cards - 1 if own_cache else cards + 1)}
+    return {k: v for k, v in want.items() if v}
+
+
 def test_instance_api_on_the_card_matches_jax(dev, instances):
     """phase_instances at ploidies 2..5 (one mixed K1 dispatch per shape
     bucket, split over the cards a bare "cuda" spreads over) and
@@ -886,8 +992,7 @@ def test_instance_api_on_the_card_matches_jax(dev, instances):
                               device=dev)
     ref, stats = TL.refine_instances(ours, want_beam, Options(**opts),
                                      device=dev)
-    assert dict(_build.LAUNCHES) == {"beam_scan": _k1_launches(dev),
-                                     "upem_climb": 10}
+    assert dict(_build.LAUNCHES) == _instance_launches(dev)
     for got, want in ((beam, want_beam), (ref, want_ref)):
         assert set(got) == set(want)
         for key in want:
@@ -912,8 +1017,8 @@ def test_instance_api_takes_a_cache_of_the_card_named_either_way(
                                   cache, device=call)
         ref, stats = TL.refine_instances(ours, want_beam, Options(**opts),
                                          cache, device=call)
-        assert dict(_build.LAUNCHES) == {"beam_scan": _k1_launches(call),
-                                         "upem_climb": 10}
+        assert dict(_build.LAUNCHES) == _instance_launches(call,
+                                                           own_cache=True)
         for got, want in ((beam, want_beam), (ref, want_ref)):
             assert set(got) == set(want)
             for key in want:

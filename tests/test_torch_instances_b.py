@@ -2,7 +2,8 @@
 JAX's CPU backend, part b: `upem_eval_batch`, the lockstep UPEM
 (`optimize_batch`, `optimize_many` with `_GroupState`), and the
 phasing entries `phase_instances` (mixed ploidies in one dispatch),
-`refine_instances` (ploidies 1..5) and `phase_contig_blocks`.
+`refine_instances` (ploidies 1..5) and `phase_contig_blocks`; and the
+block cache they read (`BlockDeviceCache`) against a numpy padding.
 
 Everything is compared bitwise: assignments, distances, scores and MEC
 stats are integer weight quanta (or unit counts) held in f64, and no
@@ -24,10 +25,12 @@ from floria_tpu import frag as JF
 from floria_tpu.kernels import upem_batch as U
 from floria_tpu.options import Options as JaxOptions
 from floria_tpu.phase import local as JL
+from floria_tpu_torch import constants, state, timing
 from floria_tpu_torch import frag as TF
-from floria_tpu_torch import timing
 from floria_tpu_torch.bench import PLOIDIES, make_workload
+from floria_tpu_torch.kernels import block_pad
 from floria_tpu_torch.kernels import upem_batch as TU
+from floria_tpu_torch.kernels.blocktensor import BlockTensor, pack_block
 from floria_tpu_torch.options import Options
 from floria_tpu_torch.phase import local as TL
 from test_torch_decisions_a import jax_blocks, jax_options
@@ -293,6 +296,96 @@ def test_instance_entries_refuse_a_cache_of_another_device():
         TL.phase_instances(blocks, Options(), [2], cache, device="cpu")
     with pytest.raises(ValueError, match="cache lives on cuda:0"):
         TL.refine_instances(blocks, {}, Options(), cache, device="cpu")
+
+
+def _packed_block(seed, num_reads, num_snps):
+    """A block from the port's pack_block (rows and columns padded to 8,
+    quals beside the alleles): reads of 1-12 SNPs, alleles 0-2."""
+    rng = np.random.default_rng(seed)
+    frags = []
+    for i in range(num_reads):
+        start = int(rng.integers(1, num_snps + 1))
+        f = TF.Frag(f"r{i}", i, False)
+        for snp in range(start, min(num_snps, start + 11) + 1):
+            f.add_site(snp, int(rng.integers(0, 3)),
+                       int(rng.integers(1, 60)), 0, 0)
+        f.freeze()
+        frags.append(f)
+    frags.sort(key=TF.Frag.sort_key)
+    return pack_block(frags, (1, num_snps))
+
+
+def _harness_block(seed, num_reads, num_sites, uncovered=()):
+    """A block as the instance-API benchmark builds one: arrays of exactly
+    [num_reads, num_sites], rows `uncovered` all uncovered."""
+    rng = np.random.default_rng(seed)
+    al = rng.integers(-1, 2, size=(num_reads, num_sites)).astype(np.int8)
+    al[list(uncovered)] = -1
+    q = np.where(al >= 0, rng.integers(1, 60, al.shape), 0).astype(np.uint8)
+    return BlockTensor(frag_ids=np.arange(num_reads), lo=1,
+                       num_sites=num_sites, num_reads=num_reads, alleles=al,
+                       weights=q.astype(np.float32),
+                       snp_range=(1, num_sites), quals=q)
+
+
+_CACHE_CASES = {
+    "pack_block": lambda: [(j, _packed_block(j, r, s)) for j, (r, s) in
+                           enumerate([(37, 90), (20, 45), (60, 100)])],
+    "unpadded": lambda: [(j, _harness_block(j, r, s)) for j, (r, s) in
+                         enumerate([(210, 1436), (199, 1529), (201, 1500)])],
+    "mixed_buckets": lambda: [
+        (("a", j), _packed_block(10 + j, r, s)) for j, (r, s) in
+        enumerate([(9, 30), (100, 300), (40, 50)])] + [
+        (("b", j), _harness_block(20 + j, r, s)) for j, (r, s) in
+        enumerate([(1, 1), (130, 700), (16, 1025), (33, 129)])],
+    # num_sites at its bucket's s_pad, num_reads at its r_pad.
+    "full_bucket": lambda: [(0, _harness_block(3, 64, 256)),
+                            (1, _harness_block(4, 64, 200))],
+    # An all-uncovered read, and a bucket of one all-uncovered block
+    # (amax 2, as max(2, .) gives).
+    "uncovered_read": lambda: [(0, _harness_block(5, 50, 300, (0, 17))),
+                               (1, _harness_block(6, 5, 70, range(5)))],
+    # Staged by several threads: a bucket of 7 blocks, the largest
+    # allele in the last thread's run.
+    "threads": lambda: [(j, _harness_block(30 + j, 40, 500 + j))
+                        for j in range(7)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CACHE_CASES))
+def test_block_cache_equals_a_numpy_padding(case, monkeypatch):
+    """BlockDeviceCache (staged cells padded by block_pad's plain version
+    on the CPU) against the padding built here in numpy, byte for byte:
+    each bucket's alleles and quals, each block's row and each bucket's
+    amax; and what it counts as crossing: each block's own cells twice
+    (alleles and quals), 24 bytes of table a block and the phred
+    table."""
+    blocks = _CACHE_CASES[case]()
+    if case == "threads":
+        monkeypatch.setattr(block_pad, "STAGE_CELLS", 1000)
+        blocks[-1][1].alleles[-1, -1] = 2
+    with timing.span("cache.case") as root:
+        cache = TL.BlockDeviceCache(blocks, device="cpu")
+    buckets = {}
+    for j, bt in blocks:
+        buckets.setdefault(TL._bucket(bt), []).append((j, bt))
+    assert set(cache.dev) == set(buckets)
+    for key, members in buckets.items():
+        alleles = np.full((len(members), *key), -1, np.int8)
+        quals = np.zeros((len(members), *key), np.uint8)
+        for b, (j, bt) in enumerate(members):
+            r, s = bt.alleles.shape
+            alleles[b, :r, :s] = bt.alleles
+            quals[b, :r, :s] = bt.quals
+            assert cache.rows[j] == b
+        assert _same(cache.dev[key][0], alleles), key
+        assert _same(cache.dev[key][1], quals), key
+        assert cache.amax[key] == min(constants.MAX_ALLELES,
+                                      max(2, int(alleles.max()) + 1))
+    h2d = sum(r.counts.get("h2d_bytes", 0) for r in timing.records()
+              if r.job == root.job)
+    assert h2d == (sum(2 * bt.num_reads * bt.num_sites + 24
+                       for _j, bt in blocks) + state.phred_table().nbytes)
 
 
 def jax_instance_case(blocks, options, chunk=16):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from floria_tpu_torch import cli, timing
+from floria_tpu_torch import cli, state, timing
 from floria_tpu_torch.kernels.blocktensor import BlockTensor
 from floria_tpu_torch.parallel.mesh import run_on_shards
 from floria_tpu_torch.phase import local as TL
@@ -155,18 +155,26 @@ def test_the_block_cache_counts_the_bytes_it_places():
         [(20, 100), (30, 120), (100, 300), (90, 700)])]
     with timing.span("cache.root") as root:
         cache = TL.BlockDeviceCache(blocks, device="cpu")
-    up, = [r for r in timing.records()
-           if r.job == root.job and r.name == "beam.cache_upload"]
+    recs = [r for r in timing.records() if r.job == root.job]
+    up, = [r for r in recs if r.name == "beam.cache_upload"]
     buckets = {}
     for _g, bt in blocks:
         key = (TL._bucket_reads(bt.num_reads),
                TL._bucket_sites(bt.num_sites))
         buckets[key] = buckets.get(key, 0) + 1
     assert len(buckets) == 3
-    want = sum(B * r_pad * s_pad * 2
-               for (r_pad, s_pad), B in buckets.items())
-    assert up.counts == {"h2d_bytes": want}
-    assert sum(a.numel() + q.numel() for a, q in cache.dev.values()) == want
+    # What crosses: each block's own cells (alleles and quals), each
+    # bucket's table of 3 int64 a block, and the phred table.
+    want = (sum(2 * bt.num_reads * bt.num_sites + 24 for _g, bt in blocks)
+            + state.phred_table().nbytes)
+    under = [r for r in recs if r.parent == up.id]
+    assert sorted(r.name for r in under) == sorted(
+        ["beam.cache_stage", "beam.cache_pad"] * len(buckets))
+    assert sum(r.counts.get("h2d_bytes", 0) for r in under + [up]) == want
+    padded = sum(B * r_pad * s_pad * 2
+                 for (r_pad, s_pad), B in buckets.items())
+    assert sum(a.numel() + q.numel()
+               for a, q in cache.dev.values()) == padded
 
 
 def test_a_cli_job_holds_its_stages_in_one_job(tmp_path):
